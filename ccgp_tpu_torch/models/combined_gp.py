@@ -5,15 +5,18 @@
   2. Laplace-seeded speculative Metropolis with Geweke stopping (the
      chunked driver; its rounds run in the fused kernel, which also
      stashes each recorded draw's prediction factors),
-  3. the per-draw factor cache, decoded from the stash,
+  3. the per-draw factor cache, decoded from the stash (or, with
+     draw_chunk, a lazy cache that predict fills draw_chunk draws at a
+     time through the lanes factor kernel),
   4. posterior-predictive moments and MC intervals.
 
 Routing: an SE/SE mixture with record="accepted" and speculative K > 1
 inside `dispatch_ok(n, K)` takes the fused rounds and the stash on every
 device (the CPU takes the kernel's plain twin). Outside the envelope the
 same driver runs its plain loop without a stash and the cache is rebuilt,
-as JAX routes it. Not ported yet: mle_method="bfgs", whiten=True,
-draw_chunk (lazy predict), the one-round and K=1 samplers.
+as JAX routes it. Both entry points run on the GPU unless device="cpu" is
+asked for, and move their inputs there. Not ported yet:
+mle_method="bfgs", whiten=True, the one-round and K=1 samplers.
 """
 from __future__ import annotations
 
@@ -34,7 +37,9 @@ from ccgp_tpu_torch.ops.kernels import KernelFamily
 from ccgp_tpu_torch.predict.factors import (
     FactorCache, build_factors, decode_stash)
 from ccgp_tpu_torch.predict.posterior import (
-    PosteriorPrediction, posterior_predict, predictive_moments)
+    PosteriorPrediction, posterior_predict, predictive_moments,
+    predictive_moments_lazy)
+from ccgp_tpu_torch.utils.device import move, resolve
 
 # device-memory budget of the sampler's stash buffer; a chain that records
 # past a capped buffer rebuilds its factor cache instead
@@ -84,20 +89,31 @@ def fit_combined_gp(
     mle_method: str = "grid",
     whiten: bool = False,
     draw_chunk: Optional[int] = None,
+    device="cuda",
 ) -> CombinedGPFit:
     """Fit the combined GP (see the module docstring for what is ported).
-    key is an int64 (2,) threefry key (`ops.rng.PRNGKey`)."""
+    key is an int64 (2,) threefry key (`ops.rng.PRNGKey`); x, y and key
+    are moved to `device`.
+
+    draw_chunk: skip the (net, n, n) factor cache and return a LAZY one
+    (empty factor arrays, the marker predict dispatches on); the sampler
+    still stashes as usual, so the chain is the same. The fit keeps y and
+    jitter, so `predict_combined_gp` rebuilds the factors draw_chunk
+    draws at a time by itself."""
     if mle_method != "grid":
         raise NotImplementedError("only mle_method='grid' is ported")
     if mle_ard:
         raise ValueError("mle_method='grid' supports scalar rates only")
-    if whiten or draw_chunk is not None:
-        raise NotImplementedError("whiten and draw_chunk are not ported")
+    if whiten:
+        raise NotImplementedError("whiten is not ported")
     if not (mcmc.speculative and mcmc.speculative > 1
             and mcmc.record == "accepted"):
         raise NotImplementedError(
             "only the speculative (K > 1) accepted-only sampler is ported")
-    k_mle, k_mcmc = rng.split(key.to(x.device), 2)
+    dev = resolve(device)
+    x = torch.as_tensor(x, device=dev)
+    y = torch.as_tensor(y, dtype=x.dtype, device=dev)
+    k_mle, k_mcmc = rng.split(key.to(dev), 2)
     family = mle_family or spec.kernel1
     mle = kriging_mle_grid(family, x, y, jitter=jitter)
     s2 = mle.sigma2 if sigma2 is None else torch.as_tensor(
@@ -139,7 +155,12 @@ def fit_combined_gp(
     decodable = res.factors is not None and (
         stash_cap is None
         or (res.factors_ok and res.n_recorded <= res.factors.shape[0]))
-    if decodable:
+    if draw_chunk is not None:
+        empty = torch.zeros((0, n_train), dtype=x.dtype, device=x.device)
+        cache = FactorCache(chol=torch.zeros((0, n_train, n_train),
+                                             dtype=x.dtype, device=x.device),
+                            a=empty, u=empty, beta=betas, params=params)
+    elif decodable:
         hi = min(max(res.n_recorded - 1, 0), res.factors.shape[0] - 1)
         idx = torch.clamp(res.n_recorded - mcmc.net_samp_size
                           + torch.arange(mcmc.net_samp_size,
@@ -167,13 +188,39 @@ def predict_combined_gp(
     var_scale: str = "sigma2",
     normalized_cross: bool = True,
     drop_negative_var: bool = True,
+    y: Optional[torch.Tensor] = None,
+    jitter=0.0,
+    draw_chunk: int = 64,
+    device="cuda",
 ) -> PosteriorPrediction:
-    """Posterior-predictive prediction from a CombinedGPFit (the factor
-    cache path; the lazy draw-chunked path is not ported)."""
+    """Posterior-predictive prediction from a CombinedGPFit; the fit, x,
+    x_new and key are moved to `device`.
+
+    A fit built with `fit_combined_gp(..., draw_chunk=...)` carries a lazy
+    factor cache: its moments are computed `draw_chunk` draws at a time
+    (`predictive_moments_lazy`) with the y and jitter stored on the fit;
+    y= and jitter= serve only fits that do not store them."""
+    dev = resolve(device)
+    fit = move(fit, dev)
+    x = torch.as_tensor(x, device=dev)
+    x_new = torch.as_tensor(x_new, dtype=x.dtype, device=dev)
+    key = key.to(dev)
     if fit.cache.chol.shape[0] == 0 and fit.zs.shape[0] > 0:
-        raise NotImplementedError("lazy (draw_chunk) fits are not ported")
-    dm, dv = predictive_moments(spec, fit.cache, x, x_new, fit.sigma2,
-                                var_scale=var_scale,
-                                normalized_cross=normalized_cross)
+        y_train = fit.y if fit.y is not None else y
+        if y_train is None:
+            raise ValueError(
+                "fit carries a lazy factor cache (fit_combined_gp(..., "
+                "draw_chunk=...)) but no stored y: pass y= and the fit's "
+                "jitter= to predict_combined_gp")
+        dm, dv = predictive_moments_lazy(
+            spec, x, torch.as_tensor(y_train, dtype=x.dtype, device=dev),
+            x_new, fit.zs, fit.cache.beta, fit.sigma2,
+            jitter=fit.jitter if fit.jitter is not None else jitter,
+            draw_chunk=draw_chunk, var_scale=var_scale,
+            normalized_cross=normalized_cross)
+    else:
+        dm, dv = predictive_moments(spec, fit.cache, x, x_new, fit.sigma2,
+                                    var_scale=var_scale,
+                                    normalized_cross=normalized_cross)
     return posterior_predict(key, dm, dv, alpha=alpha, quant_ref=quant_ref,
                              drop_negative_var=drop_negative_var)

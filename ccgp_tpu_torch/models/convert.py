@@ -2,7 +2,8 @@
 
 Nothing here imports JAX: the caller flattens its JAX objects to numpy
 (`np.asarray`) first. Keys become int64 (2,) tensors holding the two
-uint32 words, the port's key layout.
+uint32 words, the port's key layout. Every function puts its tensors on
+the GPU unless device="cpu" is asked for (see `utils.device`).
 """
 from __future__ import annotations
 
@@ -13,37 +14,40 @@ from ccgp_tpu_torch.infer.laplace import LaplaceFit
 from ccgp_tpu_torch.models.combination import MixParams
 from ccgp_tpu_torch.models.combined_gp import CombinedGPFit
 from ccgp_tpu_torch.predict.factors import FactorCache
+from ccgp_tpu_torch.utils.device import resolve
 
 
-def _t(a, dtype=None, device=None) -> torch.Tensor:
+def _t(a, dtype, device) -> torch.Tensor:
     arr = np.asarray(a)
     if dtype is None and arr.dtype.kind == "f":
         dtype = torch.float64 if arr.dtype == np.float64 else torch.float32
     return torch.as_tensor(np.array(arr), dtype=dtype, device=device)
 
 
-def key_from_numpy(key, device=None) -> torch.Tensor:
+def key_from_numpy(key, device="cuda") -> torch.Tensor:
     """A raw threefry key (2,) uint32 -> int64 (2,)."""
     k = np.asarray(key)
     if k.shape != (2,):
         raise ValueError(f"expected a raw (2,) threefry key, got {k.shape}")
-    return torch.as_tensor(k.astype(np.int64), device=device)
+    return torch.as_tensor(k.astype(np.int64), device=resolve(device))
 
 
 def laplace_from_numpy(mode, cov, logpost, dtype=None,
-                       device=None) -> LaplaceFit:
+                       device="cuda") -> LaplaceFit:
     """A `LaplaceFit` from its three arrays."""
+    device = resolve(device)
     return LaplaceFit(mode=_t(mode, dtype, device), cov=_t(cov, dtype, device),
                       logpost=_t(logpost, dtype, device))
 
 
 def fit_from_numpy(*, sigma2, zs, p, theta1, theta2, chol, a, u, beta,
                    y=None, jitter=None, dtype=None,
-                   device=None) -> CombinedGPFit:
+                   device="cuda") -> CombinedGPFit:
     """A predict-ready `CombinedGPFit` from a JAX fit's arrays: sigma2, the
     retained draws zs, their constrained params (p, theta1, theta2), the
     factor cache (chol, a, u, beta), and optionally y and jitter. The MLE
     and the chain are not carried (mle=None, mcmc=None)."""
+    device = resolve(device)
     c = lambda v: _t(v, dtype, device)  # noqa: E731
     params = MixParams(p=c(p), theta1=c(theta1), theta2=c(theta2))
     cache = FactorCache(chol=c(chol), a=c(a), u=c(u), beta=c(beta),

@@ -1,10 +1,13 @@
 """Build and load the package's CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by `nvcc` into ONE shared library with a
-plain C interface, loaded with `ctypes`:
+Every `csrc/*.cu` file is compiled by its own `nvcc` process, all of them
+started together, and the objects are linked into ONE shared library with
+a plain C interface, loaded with `ctypes`:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/libccgp_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c -o <tmp>/<name>.o csrc/<name>.cu   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o _build/libccgp_kernels_<hash>.so <tmp>/*.o
 
 No PyTorch headers are included, so a build takes seconds. The output goes
 to `ccgp_tpu_torch/_build/` under a name keyed by a hash of the sources and
@@ -30,16 +33,20 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 # C entry points: name -> argtypes (restype is always int)
 _SIGNATURES = {
     "ccgp_threefry_split_chain": [_P, _P, _P, _P, _I, _P],
-    "ccgp_mh_rounds_f32": [_P] * 11 + [_I] * 5 + [ctypes.c_double, _P],
-    "ccgp_mh_rounds_f64": [_P] * 11 + [_I] * 5 + [ctypes.c_double, _P],
+    "ccgp_mh_rounds_f32": [_P] * 11 + [_I] * 5 + [_D, _P],
+    "ccgp_mh_rounds_f64": [_P] * 11 + [_I] * 5 + [_D, _P],
+    # grams, y, q, chol, wy, wo, B, n, factors, jitter, stream
+    "ccgp_chol_lanes_f32": [_P] * 6 + [_I] * 3 + [_D, _P],
+    "ccgp_chol_lanes_f64": [_P] * 6 + [_I] * 3 + [_D, _P],
 }
 
 def _sources():
@@ -56,6 +63,19 @@ def _nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
+def _run_all(cmds) -> None:
+    """Run the commands in parallel, wait for every one, raise if any
+    failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for c, p, (so, se) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(c)}"
+                               f"\n{so}\n{se}")
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in _sources():
@@ -70,16 +90,15 @@ def library() -> ctypes.CDLL:
     out = library_path()
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *(str(p) for p in _sources() if p.suffix == ".cu")]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}"
-                               f"\n{r.stdout}\n{r.stderr}")
-        os.replace(tmp, out)
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            srcs = [p for p in _sources() if p.suffix == ".cu"]
+            objs = [os.path.join(tmp, p.stem + ".o") for p in srcs]
+            _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)]
+                      for p, o in zip(srcs, objs)])
+            so = os.path.join(tmp, "lib.so")
+            _run_all([[nvcc, *ARCH, "-shared", "-o", so, *objs]])
+            os.replace(so, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -25,6 +25,7 @@ import math
 import torch
 
 from ccgp_tpu_torch.ops import _build
+from ccgp_tpu_torch.utils.device import resolve
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -49,11 +50,12 @@ def threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
-def PRNGKey(seed: int, device=None) -> torch.Tensor:
-    """jax.random.PRNGKey(seed) as an int64 (2,) tensor."""
+def PRNGKey(seed: int, device="cuda") -> torch.Tensor:
+    """jax.random.PRNGKey(seed) as an int64 (2,) tensor, on the GPU unless
+    device="cpu" is asked for (see `utils.device`)."""
     seed = int(seed) & ((1 << 64) - 1)
     return torch.tensor([seed >> 32, seed & _M32], dtype=torch.int64,
-                        device=device)
+                        device=resolve(device))
 
 
 def _counts(shape, device):

@@ -12,7 +12,7 @@ import torch
 
 from ccgp_tpu_torch.models.combination import (
     MixParams, MixtureSpec, mixed_gram, unpack)
-from ccgp_tpu_torch.ops import linalg
+from ccgp_tpu_torch.ops import chol_lanes, linalg
 
 
 def decode_stash(fac: torch.Tensor, n: int):
@@ -33,12 +33,22 @@ class FactorCache(NamedTuple):
 
 def build_factors(spec: MixtureSpec, x: torch.Tensor, y: torch.Tensor,
                   zs: torch.Tensor, betas: torch.Tensor,
-                  jitter: float = 0.0) -> FactorCache:
-    """zs: (m, n_params) retained unconstrained draws; betas: (m,). The
-    plain batched path (the lanes kernel that JAX uses for m >= 64 on a
-    TPU is still to be ported)."""
+                  jitter=0.0) -> FactorCache:
+    """zs: (m, n_params) retained unconstrained draws; betas: (m,).
+
+    As in JAX, m >= 64 draws with n <= 128 go to the lanes kernel
+    (`ops/chol_lanes.chol_factors_lanes`, K4), which emits L, L^-1 y and
+    L^-1 1 in one pass; a = L^-1 (y - beta 1) = wy - beta wo. R_mix has a
+    unit diagonal, so the kernel's absolute jitter equals
+    `jitter_cholesky`'s mean-diagonal-relative one. Other shapes take the
+    plain batched path."""
     params, _ = unpack(spec, zs)
-    chol = linalg.jitter_cholesky(mixed_gram(spec, x, params), jitter)
+    r = mixed_gram(spec, x, params)
+    if chol_lanes.dispatch_ok(zs.shape[0], x.shape[-2]):
+        f = chol_lanes.chol_factors_lanes(r, y, jitter=jitter)
+        return FactorCache(chol=f["chol"], a=f["wy"] - betas[:, None] * f["wo"],
+                           u=f["wo"], beta=betas, params=params)
+    chol = linalg.jitter_cholesky(r, jitter)
     a = linalg.tri_solve(chol, y[None, :] - betas[:, None])
     u = linalg.tri_solve(chol, torch.ones_like(a))
     return FactorCache(chol=chol, a=a, u=u, beta=betas, params=params)

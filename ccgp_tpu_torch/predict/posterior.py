@@ -16,7 +16,7 @@ import torch
 from ccgp_tpu_torch.models.combination import (
     MixtureSpec, mix_weights, mixed_cross)
 from ccgp_tpu_torch.ops import linalg, rng
-from ccgp_tpu_torch.predict.factors import FactorCache
+from ccgp_tpu_torch.predict.factors import FactorCache, build_factors
 from ccgp_tpu_torch.utils import stats
 
 
@@ -48,6 +48,41 @@ def predictive_moments(spec: MixtureSpec, cache: FactorCache,
         scale = (s * sigma2)[:, None]
     var = scale * (1.0 - rinv_quad + (1.0 - one_rinv_r) ** 2 / denom)
     return mean, var
+
+
+def predictive_moments_lazy(spec: MixtureSpec, x: torch.Tensor,
+                            y: torch.Tensor, x_new: torch.Tensor,
+                            zs: torch.Tensor, betas: torch.Tensor, sigma2,
+                            jitter=0.0, draw_chunk: int = 64,
+                            var_scale: str = "sigma2",
+                            normalized_cross: bool = True):
+    """Draw-chunked predictive moments: the factors of `draw_chunk` draws
+    at a time (`build_factors`; 64 draws with n <= 128 is one launch of
+    the lanes factor kernel), their (chunk, t) moments, then the next
+    chunk. Peak factor memory is draw_chunk n^2 instead of m n^2. The
+    ragged last chunk is padded with repeats of the last draw, as in JAX,
+    so every chunk has the same shape; the padding rows are dropped."""
+    m = zs.shape[0]
+    t = x_new.shape[-2]
+    if m == 0:
+        empty = torch.zeros((0, t), dtype=x.dtype, device=x.device)
+        return empty, empty
+    c = min(int(draw_chunk), m)
+    nc = -(-m // c)
+    pad = nc * c - m
+    if pad:
+        zs = torch.cat([zs, zs[-1:].expand(pad, zs.shape[1])])
+        betas = torch.cat([betas, betas[-1:].expand(pad)])
+    means, variances = [], []
+    for k in range(nc):
+        cache = build_factors(spec, x, y, zs[k * c:(k + 1) * c],
+                              betas[k * c:(k + 1) * c], jitter=jitter)
+        dm, dv = predictive_moments(spec, cache, x, x_new, sigma2,
+                                    var_scale=var_scale,
+                                    normalized_cross=normalized_cross)
+        means.append(dm)
+        variances.append(dv)
+    return torch.cat(means)[:m], torch.cat(variances)[:m]
 
 
 def posterior_predict(key: torch.Tensor, draw_mean: torch.Tensor,

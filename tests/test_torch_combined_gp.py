@@ -90,12 +90,12 @@ def torch_run(data):
                  rough="tied", anisotropic=True)
     counts = (rng.threefry_split_chain.launches,
               chol_smallk.fused_mix_mh_rounds.launches)
-    kf, kp = rng.split(rng.PRNGKey(1), 2)
+    kf, kp = rng.split(rng.PRNGKey(1, device="cpu"), 2)
     fit = fit_combined_gp(spec, t(x), t(y), kf, mcmc=MCMCConfig(**CFG),
                           theta1_prior=LogNormal(-1.0, 1.0),
                           theta2_prior=InverseGamma(3, 4), jitter=1e-6,
-                          mle_method="grid")
-    pred = predict_combined_gp(spec, fit, t(x), t(grid), kp)
+                          mle_method="grid", device="cpu")
+    pred = predict_combined_gp(spec, fit, t(x), t(grid), kp, device="cpu")
     after = (rng.threefry_split_chain.launches,
              chol_smallk.fused_mix_mh_rounds.launches)
     return spec, fit, pred, counts, after
@@ -144,9 +144,10 @@ def test_converted_jax_fit_predicts_the_same(data, jax_run):
         theta2=np.asarray(jf.params.theta2), chol=np.asarray(jf.cache.chol),
         a=np.asarray(jf.cache.a), u=np.asarray(jf.cache.u),
         beta=np.asarray(jf.cache.beta), y=np.asarray(jf.y),
-        jitter=np.asarray(jf.jitter))
+        jitter=np.asarray(jf.jitter), device="cpu")
     pred = predict_combined_gp(spec, fit, t(x), t(grid),
-                               key_from_numpy(np.asarray(kp)))
+                               key_from_numpy(np.asarray(kp), device="cpu"),
+                               device="cpu")
     for f in ("mean", "lower", "upper", "quant", "draw_mean", "draw_var"):
         assert_close(getattr(pred, f), getattr(jp, f), 1e-10)
 
@@ -155,13 +156,12 @@ def test_unported_options_raise(data):
     x, y, _ = data
     spec = TSpec(tkern.sqexp_family(), tkern.sqexp_family(), dim=2,
                  rough="tied", anisotropic=True)
-    key = rng.PRNGKey(0)
+    key = rng.PRNGKey(0, device="cpu")
     for kw in (dict(mle_method="bfgs"), dict(whiten=True),
-               dict(draw_chunk=16),
                dict(mcmc=MCMCConfig(**dict(CFG, speculative=0)))):
         kw.setdefault("mcmc", MCMCConfig(**CFG))
         with pytest.raises(NotImplementedError):
-            fit_combined_gp(spec, t(x), t(y), key, **kw)
+            fit_combined_gp(spec, t(x), t(y), key, device="cpu", **kw)
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|ccgp_tpu)(?:\.|\s|$)",
@@ -188,3 +188,39 @@ def test_port_never_imports_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked_for(monkeypatch, data):
+    """The entry points run on the GPU by default: without one they raise
+    rather than run on the CPU; device="cpu" runs there."""
+    from ccgp_tpu_torch.eb import choose_hyperpars
+    from ccgp_tpu_torch.models.convert import laplace_from_numpy
+
+    x, y, grid = data
+    spec = TSpec(tkern.sqexp_family(), tkern.sqexp_family(), dim=2,
+                 rough="tied", anisotropic=True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    key = rng.PRNGKey(0, device="cpu")
+    fit_kw = dict(mcmc=MCMCConfig(**CFG), mle_method="grid")
+    for call in (
+            lambda: rng.PRNGKey(0),
+            lambda: key_from_numpy(np.array([0, 7], np.uint32)),
+            lambda: laplace_from_numpy(np.zeros(4), np.eye(4), 0.0),
+            lambda: fit_from_numpy(sigma2=1.0, zs=np.zeros((1, 4)), p=0.5,
+                                   theta1=np.ones((1, 2)), theta2=1.0,
+                                   chol=np.eye(20)[None], a=np.zeros((1, 20)),
+                                   u=np.zeros((1, 20)), beta=np.zeros(1)),
+            lambda: fit_combined_gp(spec, x, y, key, **fit_kw),
+            lambda: choose_hyperpars(spec, x, y, np.ones((1, 4)), 1.0)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    fit = fit_from_numpy(sigma2=1.0, zs=np.zeros((1, 4)), p=np.full(1, 0.5),
+                         theta1=np.ones((1, 2)), theta2=np.ones(1),
+                         chol=np.eye(20)[None], a=np.zeros((1, 20)),
+                         u=np.zeros((1, 20)), beta=np.zeros(1), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        predict_combined_gp(spec, fit, t(x), t(grid), key)
+    # device="cpu" takes numpy inputs and runs there
+    pred = predict_combined_gp(spec, fit, x, grid, key, device="cpu")
+    assert pred.mean.device.type == "cpu" and pred.mean.shape == (36,)
+    assert rng.PRNGKey(5, device="cpu").device.type == "cpu"

@@ -273,8 +273,9 @@ def test_chunked_driver_matches_jax(problem, laplace_fit, case):
     lpt = make_logpost(ts, t(x), t(y), t(0.05), **tkw)
     rounds_t = make_mh_rounds(ts, t(x), t(y), t(0.05), stash=True, **tkw)
     fit_t = laplace_from_numpy(laplace_fit.mode, laplace_fit.cov,
-                               laplace_fit.logpost)
-    rt = metropolis(lpt, t(mode), key_from_numpy(key), laplace_fit=fit_t,
+                               laplace_fit.logpost, device="cpu")
+    rt = metropolis(lpt, t(mode), key_from_numpy(key, device="cpu"),
+                    laplace_fit=fit_t,
                     speculative=4, mh_rounds=rounds_t, batch_size=20,
                     stash_rows=len(y) + 2, stash_lanes=len(y), **cfg)
     n = int(rj.n_recorded)
@@ -302,15 +303,15 @@ def test_capped_stash_flags_and_keeps_the_chain(problem, laplace_fit):
     lpt = make_logpost(ts, t(x), t(y), t(0.05), **tkw)
     rounds_t = make_mh_rounds(ts, t(x), t(y), t(0.05), stash=True, **tkw)
     fit_t = laplace_from_numpy(laplace_fit.mode, laplace_fit.cov,
-                               laplace_fit.logpost)
+                               laplace_fit.logpost, device="cpu")
     kw = dict(laplace_fit=fit_t, speculative=4, mh_rounds=rounds_t,
               n_max=300, samp_size=30, batch_size=20, alpha_geweke=2.0,
               rounds_per_call=16, rounds_per_call_warm=16,
               stash_rows=len(y) + 2, stash_lanes=len(y))
     start = t(np.asarray(laplace_fit.mode))
-    r_ok = metropolis(lpt, start, key_from_numpy(jax.random.PRNGKey(3)),
+    r_ok = metropolis(lpt, start, key_from_numpy(jax.random.PRNGKey(3), device="cpu"),
                       stash_cap=None, **kw)
-    r_bad = metropolis(lpt, start, key_from_numpy(jax.random.PRNGKey(3)),
+    r_bad = metropolis(lpt, start, key_from_numpy(jax.random.PRNGKey(3), device="cpu"),
                        stash_cap=130, **kw)
     assert r_ok.n_recorded == r_bad.n_recorded == 300
     assert r_ok.factors_ok and not r_bad.factors_ok
@@ -323,7 +324,7 @@ def test_unported_samplers_raise(problem):
     x, y, js, ts, jkw, tkw = problem
     lpt = make_logpost(ts, t(x), t(y), t(0.05), **tkw)
     rounds_t = make_mh_rounds(ts, t(x), t(y), t(0.05), **tkw)
-    key = key_from_numpy(jax.random.PRNGKey(0))
+    key = key_from_numpy(jax.random.PRNGKey(0), device="cpu")
     for kw in (dict(speculative=0, mh_rounds=rounds_t),
                dict(speculative=4, mh_rounds=None),
                dict(speculative=4, mh_rounds=rounds_t, record="all")):

@@ -25,7 +25,7 @@ def as_i64(a):
 @pytest.mark.parametrize("seed", SEEDS)
 def test_prngkey_and_split(seed):
     kj = jax.random.PRNGKey(seed)
-    kt = rng.PRNGKey(seed)
+    kt = rng.PRNGKey(seed, device="cpu")
     np.testing.assert_array_equal(kt.numpy(), as_i64(kj))
     for num in (2, 3, 5):
         np.testing.assert_array_equal(rng.split(kt, num).numpy(),
@@ -34,7 +34,7 @@ def test_prngkey_and_split(seed):
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_random_bits(seed):
-    kj, kt = jax.random.PRNGKey(seed), rng.PRNGKey(seed)
+    kj, kt = jax.random.PRNGKey(seed), rng.PRNGKey(seed, device="cpu")
     np.testing.assert_array_equal(
         rng.random_bits(kt, 32, (3, 5)).numpy(),
         as_i64(jax.random.bits(kj, (3, 5), jnp.uint32)))
@@ -46,7 +46,7 @@ def test_random_bits(seed):
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("seed", SEEDS)
 def test_uniform_and_normal(seed, dtype):
-    kj, kt = jax.random.PRNGKey(seed), rng.PRNGKey(seed)
+    kj, kt = jax.random.PRNGKey(seed), rng.PRNGKey(seed, device="cpu")
     tdt = getattr(torch, dtype)
     uj = jax.random.uniform(kj, (4, 6), dtype=dtype)
     np.testing.assert_array_equal(rng.uniform(kt, (4, 6), tdt).numpy(),
@@ -93,7 +93,8 @@ def test_split_chain_matches_jax(rr, seed):
     """The wrapper on a CPU key (its plain version) against the scan of
     jax.random.split and the Pallas kernel in interpret mode."""
     key = jax.random.PRNGKey(seed)
-    new_t, k1_t, k2_t = rng.threefry_split_chain(rng.PRNGKey(seed), rr)
+    new_t, k1_t, k2_t = rng.threefry_split_chain(
+        rng.PRNGKey(seed, device="cpu"), rr)
     ref = scan_reference(key, rr)
     pal = jax_chain(key, rr, interpret=True)
     for got, r, p in zip((new_t, k1_t, k2_t), ref, pal):
@@ -102,7 +103,7 @@ def test_split_chain_matches_jax(rr, seed):
 
 
 def test_split_chain_chains_across_calls():
-    key = rng.PRNGKey(42)
+    key = rng.PRNGKey(42, device="cpu")
     k = key
     k1s = []
     for _ in range(2):
@@ -119,13 +120,13 @@ def test_split_chain_rejects_bad_inputs():
     with pytest.raises(ValueError):
         rng.threefry_split_chain(torch.zeros(2, dtype=torch.int32), 5)
     with pytest.raises(ValueError):
-        rng.threefry_split_chain(rng.PRNGKey(0), 0)
+        rng.threefry_split_chain(rng.PRNGKey(0, device="cpu"), 0)
     # a tensor on another device is refused, never silently computed
     with pytest.raises(ValueError):
-        rng.threefry_split_chain(rng.PRNGKey(0).to("meta"), 3)
+        rng.threefry_split_chain(rng.PRNGKey(0, device="cpu").to("meta"), 3)
 
 
 def test_cpu_keys_never_launch_the_kernel():
     before = rng.threefry_split_chain.launches
-    rng.threefry_split_chain(rng.PRNGKey(1), 20)
+    rng.threefry_split_chain(rng.PRNGKey(1, device="cpu"), 20)
     assert rng.threefry_split_chain.launches == before
