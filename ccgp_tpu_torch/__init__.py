@@ -7,21 +7,25 @@ every module here is held against its JAX counterpart by the tests in
 
 Layering mirrors `ccgp_tpu` (ops <- models <- infer / predict):
 
-ops        distances, the squared-exponential family, Cholesky linalg, the
-           quadratics dispatcher and the batched Cholesky it routes large
-           batches to (`ops/chol_lanes.py`, with the lanes CUDA kernel),
-           special functions, the counter-based threefry RNG
+ops        distances, the correlation families (squared exponential,
+           Matern through the Bessel K_v of `ops/bessel.py`, cubic
+           spline), Cholesky linalg, the quadratics dispatcher and the
+           kernels it routes to (`ops/chol_lanes.py`: wide batches;
+           `ops/chol_smallk.py`: K <= 16 matrices, with the small-K CUDA
+           kernels), special functions, the counter-based threefry RNG
            (`ops/rng.py`, with the key-chain CUDA kernel) and the fused
            speculative Metropolis rounds (`ops/chol_smallk.py`, with the
            rounds CUDA kernel).
 models     convex-combination covariance, priors, transformed
            log-posterior, the CombinedGP fit/predict pipeline and the
            converter from the JAX package's state (`models/convert.py`).
-infer      BFGS, Laplace, Geweke, the grid kriging MLE and the chunked
-           Metropolis driver.
+infer      BFGS and its multistart, Laplace, Geweke, the effective sample
+           size, the kriging MLE (BFGS and grid) and the Metropolis
+           drivers (K = 1, one-round speculative, chunked).
 predict    per-draw factor caches, the draw-chunked moments and
            posterior-predictive aggregation.
 eb         Halton nodes and the empirical-Bayes hyperprior scan.
+eval       the 1-D study's test functions.
 utils      transforms, masked statistics and the entry points' device.
 
 Entry points (`PRNGKey`, `models.convert`, `fit_combined_gp`,

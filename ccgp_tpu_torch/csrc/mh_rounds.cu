@@ -15,8 +15,9 @@
 //   2. the SE-mixture Gram from x directly,
 //        R = (p^2 exp(-sum_a r1_a dx_a^2) + (1-p)^2 exp(-sum_a r2_a dx_a^2))
 //            / (p^2 + (1-p)^2)  (+ jitter on the diagonal),
-//      stored as its upper triangle;
-//   3. a right-looking Cholesky with the forward solve of [y, 1] fused in:
+//      stored as its upper triangle (`build_se_mix_grams`);
+//   3. a right-looking Cholesky with the forward solve of [y, 1] fused in
+//      (`factor_quadratics`):
 //      pivot j reads d_j = M[j][j], dinv = rsqrt(d_j), and downdates
 //      M[i][c] -= (M[j][i] dinv)(M[j][c] dinv) for j < i <= c; the
 //      solve updates ry[i] -= (M[j][i] dinv)(ry[j] dinv). One
@@ -24,7 +25,10 @@
 //   4. logdet and the quadratics qyy, qoy, qoo (accumulated pivot by
 //      pivot), beta = qoy / qoo and the log-posterior;
 //   5. the first-acceptance scan: (val_k - lp_val) > log_u[r, k]; a NaN
-//      log-posterior compares false and so rejects;
+//      log-posterior compares false and so rejects
+//      (`logpost_first_acceptance`);
+//   steps 2-5 are the device functions of csrc/chol_core.cuh, shared with
+//   the K5-K7 kernels of csrc/chol_smallk.cu;
 //   6. one rec row [z | beta | logpost], one info row [acc, consumed],
 //      and, with the stash on, the accepted candidate's row-scaled factor
 //      rows (row j: L[i][j] at column i >= j), L^-1 y and L^-1 1.
@@ -58,25 +62,11 @@
 // ops/chol_smallk.py). exp / log / log1p / rsqrt are the CUDA math
 // library's, as PyTorch's elementwise kernels use.
 
-#include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
 
+#include "chol_core.cuh"
+
 namespace {
-
-constexpr int MAX_K = 16;
-constexpr int MAX_D = 64;
-constexpr int MAX_DIM = MAX_D + 2;
-constexpr int NT = 1024;
-constexpr int WARPS = NT / 32;
-constexpr int UNROLL = 4;
-constexpr size_t SMEM_PER_BLOCK = 232448;   // 227 KB opt-in on sm_90
-
-// Packed upper triangle of an n x n matrix: row i holds columns i..n-1 and
-// starts at i n - i (i - 1) / 2; rowbase(i) + c addresses (i, c), c >= i.
-__device__ __forceinline__ size_t rowbase(int i, int n) {
-  return (size_t)i * (2 * n - i - 1) / 2;
-}
 
 // must match ops/chol_smallk.py CandModel
 struct CandModel {
@@ -90,30 +80,6 @@ struct CandModel {
 
 enum { PRIOR_NONE = 0, PRIOR_INVGAMMA, PRIOR_LOGNORMAL, PRIOR_UNIFORM01,
        PRIOR_JEFFREYS };
-
-template <typename T> struct Ar;
-
-template <> struct Ar<float> {
-  static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-  static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-  static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-  static __device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
-  static __device__ __forceinline__ float exp_(float a) { return expf(a); }
-  static __device__ __forceinline__ float log_(float a) { return logf(a); }
-  static __device__ __forceinline__ float log1p_(float a) { return log1pf(a); }
-  static __device__ __forceinline__ float rsqrt_(float a) { return rsqrtf(a); }
-};
-
-template <> struct Ar<double> {
-  static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
-  static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
-  static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
-  static __device__ __forceinline__ double div(double a, double b) { return __ddiv_rn(a, b); }
-  static __device__ __forceinline__ double exp_(double a) { return exp(a); }
-  static __device__ __forceinline__ double log_(double a) { return log(a); }
-  static __device__ __forceinline__ double log1p_(double a) { return log1p(a); }
-  static __device__ __forceinline__ double rsqrt_(double a) { return rsqrt(a); }
-};
 
 template <typename T>
 __device__ T sigmoid(T x) {
@@ -149,27 +115,30 @@ __device__ T prior_kernel(int code, double a, double b, T x) {
   }
 }
 
-// Candidate model for one candidate (see ops/chol_smallk.cand_model_plain).
+// Candidate model for the candidate z + dl (see
+// ops/chol_smallk.cand_model_plain).
 template <typename T>
-__device__ void cand_model(const CandModel& m, const T* cz, T s2, T* r1,
-                           T* r2, T& p, T& extra, T& log_scale) {
+__device__ void cand_model(const CandModel& m, const T* z, const T* dl, T s2,
+                           T* r1, T* r2, T& p, T& extra, T& log_scale) {
   using A = Ar<T>;
+  const auto cz = [&](int c) { return A::add(z[c], dl[c]); };
   const int d = m.ndim;
   T th2, log_jac, theta1 = T(0);
   if (m.anisotropic) {
-    T psi_sum = cz[0];
-    r1[0] = A::exp_(cz[0]);
+    T psi_sum = cz(0);
+    r1[0] = A::exp_(psi_sum);
     for (int a = 1; a < d; ++a) {
-      r1[a] = A::exp_(cz[a]);
-      psi_sum = A::add(psi_sum, cz[a]);
+      const T za = cz(a);
+      r1[a] = A::exp_(za);
+      psi_sum = A::add(psi_sum, za);
     }
-    const T phi = cz[d], zeta = cz[d + 1];
+    const T phi = cz(d), zeta = cz(d + 1);
     th2 = A::exp_(zeta);
     p = sigmoid(phi);
     log_jac = A::add(A::add(psi_sum, zeta),
                      A::add(log_sigmoid(phi), log_sigmoid(-phi)));
   } else {
-    const T psi1 = cz[0], psi2 = cz[1], phi = cz[2];
+    const T psi1 = cz(0), psi2 = cz(1), phi = cz(2);
     theta1 = A::exp_(psi1);
     th2 = A::exp_(psi2);
     p = sigmoid(phi);
@@ -216,14 +185,15 @@ mh_rounds_kernel(const T* __restrict__ x, const T* __restrict__ y,
                  T jitter, T n_log2pi) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   using A = Ar<T>;
+  // candidate k is s_z + deltas[r, k], recomputed where it is read (a
+  // K x MAX_DIM copy would not fit the 48 KB of static shared memory in f64)
   __shared__ T s_z[MAX_DIM];
-  __shared__ T s_cz[MAX_K][MAX_DIM];
   __shared__ T s_r1[MAX_K][MAX_D];
   __shared__ T s_r2[MAX_K][MAX_D];
   __shared__ T s_w1[MAX_K], s_w2[MAX_K], s_ws[MAX_K];
   __shared__ T s_extra[MAX_K], s_logscale[MAX_K];
   __shared__ T s_ld[MAX_K], s_qyy[MAX_K], s_qoy[MAX_K], s_qoo[MAX_K];
-  __shared__ T s_dinv[2][MAX_K];   // pivot rsqrt, double-buffered by pivot
+  __shared__ T s_dinv[2 * MAX_K];   // pivot rsqrt, double-buffered by pivot
   __shared__ T s_lpv, s_lpb;
   __shared__ int s_sel;
 
@@ -231,12 +201,11 @@ mh_rounds_kernel(const T* __restrict__ x, const T* __restrict__ y,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const size_t nn = (size_t)n * (n + 1) / 2;
-  T* M = SMEM ? (T*)smem_raw : ws;   // K packed upper triangles
-  T* RY = M + (size_t)K * nn;      // K x n right-hand sides, downdated
-  T* RO = RY + (size_t)K * n;
-  T* WY = RO + (size_t)K * n;      // L^-1 y
-  T* WO = WY + (size_t)K * n;      // L^-1 1
-  T* DINV = WO + (size_t)K * n;    // rsqrt of each pivot
+  // K packed upper triangles, the right-hand sides (downdated), L^-1 y,
+  // L^-1 1 and the rsqrt of each pivot
+  const Factors<T> f(SMEM ? (T*)smem_raw : ws, n, K, s_ld, s_qyy, s_qoy,
+                     s_qoo, s_dinv);
+  T* M = f.M;
   const T s2 = st[2];
 
   for (int c = tid; c < dim; c += NT) s_z[c] = z0[c];
@@ -251,130 +220,34 @@ mh_rounds_kernel(const T* __restrict__ x, const T* __restrict__ y,
     if (tid < K) {
       const int k = tid;
       const T* dl = deltas + ((size_t)r * K + k) * dim;
-      for (int c = 0; c < dim; ++c) s_cz[k][c] = A::add(s_z[c], dl[c]);
       T p, extra, ls;
-      cand_model<T>(model, s_cz[k], s2, s_r1[k], s_r2[k], p, extra, ls);
+      cand_model<T>(model, s_z, dl, s2, s_r1[k], s_r2[k], p, extra, ls);
       const T q = A::sub(T(1), p);
       s_w1[k] = A::mul(p, p);
       s_w2[k] = A::mul(q, q);
       s_ws[k] = A::add(s_w1[k], s_w2[k]);
       s_extra[k] = extra;
       s_logscale[k] = ls;
-      s_ld[k] = T(0);
-      s_qyy[k] = T(0);
-      s_qoy[k] = T(0);
-      s_qoo[k] = T(0);
     }
     __syncthreads();
 
     // 2. the K Grams (upper triangles) and right-hand sides
-    for (int row = warp; row < K * n; row += WARPS) {
-      const int k = row / n, i = row - k * n;
-      T* Mi = M + (size_t)k * nn + rowbase(i, n);
-      for (int c = i + lane; c < n; c += 32) {
-        T dist1 = T(0), dist2 = T(0);
-        for (int a = 0; a < d; ++a) {
-          const T df = A::sub(x[(size_t)i * d + a], x[(size_t)c * d + a]);
-          const T d2 = A::mul(df, df);
-          dist1 = A::add(dist1, A::mul(d2, s_r1[k][a]));
-          dist2 = A::add(dist2, A::mul(d2, s_r2[k][a]));
-        }
-        T v = A::div(A::add(A::mul(s_w1[k], A::exp_(-dist1)),
-                            A::mul(s_w2[k], A::exp_(-dist2))), s_ws[k]);
-        if (c == i && jitter != T(0)) v = A::add(v, jitter);
-        Mi[c] = v;
-        if (i == 0 && c == 0) s_dinv[0][k] = A::rsqrt_(v);
-      }
-      if (lane == 0) {
-        RY[(size_t)k * n + i] = y[i];
-        RO[(size_t)k * n + i] = T(1);
-      }
-    }
+    build_se_mix_grams<T>(f, x, y, s_r1, s_r2, s_w1, s_w2, s_ws, n, d, K,
+                          jitter);
     __syncthreads();
 
     // 3.-4. right-looking factorization, forward solve, quadratics
-    for (int j = 0; j < n; ++j) {
-      const int b = j & 1;
-      if (tid < K) {
-        const int k = tid;
-        const T dj = M[(size_t)k * nn + rowbase(j, n) + j];
-        const T dinv = s_dinv[b][k];
-        const T wyj = A::mul(RY[(size_t)k * n + j], dinv);
-        const T woj = A::mul(RO[(size_t)k * n + j], dinv);
-        s_ld[k] = A::add(s_ld[k], A::log_(dj));
-        WY[(size_t)k * n + j] = wyj;
-        WO[(size_t)k * n + j] = woj;
-        DINV[(size_t)k * n + j] = dinv;
-        s_qyy[k] = A::add(s_qyy[k], A::mul(wyj, wyj));
-        s_qoy[k] = A::add(s_qoy[k], A::mul(wyj, woj));
-        s_qoo[k] = A::add(s_qoo[k], A::mul(woj, woj));
-      }
-      const int w = n - j - 1;
-      // the solve: one thread per (candidate, row below the pivot)
-      for (int e = tid; e < K * w; e += NT) {
-        const int k = e / w, i = j + 1 + (e - k * w);
-        const T dinv = s_dinv[b][k];
-        const T li = A::mul(M[(size_t)k * nn + rowbase(j, n) + i], dinv);
-        T* ry = RY + (size_t)k * n;
-        T* ro = RO + (size_t)k * n;
-        ry[i] = A::sub(ry[i], A::mul(li, A::mul(ry[j], dinv)));
-        ro[i] = A::sub(ro[i], A::mul(li, A::mul(ro[j], dinv)));
-      }
-      // the downdate: a warp per row, each lane loading all of its
-      // columns before it stores any (UNROLL * 32 columns per pass)
-      for (int k = 0; k < K; ++k) {
-        const T dinv = s_dinv[b][k];
-        const T* Mj = M + (size_t)k * nn + rowbase(j, n);
-        for (int i = j + 1 + warp; i < n; i += WARPS) {
-          T* Mi = M + (size_t)k * nn + rowbase(i, n);
-          const T li = A::mul(Mj[i], dinv);
-          for (int c0 = i + lane; c0 < n; c0 += 32 * UNROLL) {
-            T mi[UNROLL], mj[UNROLL];
-#pragma unroll
-            for (int u = 0; u < UNROLL; ++u) {
-              const int c = c0 + 32 * u;
-              if (c < n) {
-                mi[u] = Mi[c];
-                mj[u] = Mj[c];
-              }
-            }
-#pragma unroll
-            for (int u = 0; u < UNROLL; ++u) {
-              const int c = c0 + 32 * u;
-              if (c < n) {
-                const T v = A::sub(mi[u], A::mul(li, A::mul(mj[u], dinv)));
-                Mi[c] = v;
-                if (c == j + 1) s_dinv[b ^ 1][k] = A::rsqrt_(v);  // next pivot
-              }
-            }
-          }
-        }
-      }
-      __syncthreads();
-    }
+    factor_quadratics<T>(f, n, K);
 
     // 5. log-posteriors and the first-acceptance scan
     if (tid == 0) {
-      const T lpv = s_lpv;
-      int sel = -1;
       T val_sel = T(0), beta_sel = T(0);
-      for (int k = 0; k < K; ++k) {
-        const T qoo = s_qoo[k], qoy = s_qoy[k];
-        const T beta = A::div(qoy, qoo);
-        const T quad = A::sub(s_qyy[k], A::div(A::mul(qoy, qoy), qoo));
-        const T ls = s_logscale[k];
-        const T inner = A::add(
-            A::add(A::add(n_log2pi, s_ld[k]), A::mul((T)n, ls)),
-            A::mul(quad, A::exp_(-ls)));
-        const T val = A::add(A::mul(T(-0.5), inner), s_extra[k]);
-        if (sel < 0 && A::sub(val, lpv) > log_u[(size_t)r * K + k]) {
-          sel = k;
-          val_sel = val;
-          beta_sel = beta;
-        }
-      }
+      const int sel = logpost_first_acceptance<T>(
+          f, s_extra, s_logscale, log_u + (size_t)r * K, s_lpv, n, K,
+          n_log2pi, val_sel, beta_sel);
       if (sel >= 0) {
-        for (int c = 0; c < dim; ++c) s_z[c] = s_cz[sel][c];
+        const T* dl = deltas + ((size_t)r * K + sel) * dim;
+        for (int c = 0; c < dim; ++c) s_z[c] = A::add(s_z[c], dl[c]);
         s_lpv = val_sel;
         s_lpb = beta_sel;
       }
@@ -396,23 +269,17 @@ mh_rounds_kernel(const T* __restrict__ x, const T* __restrict__ y,
       for (int row = warp; row < n + 2; row += WARPS) {
         T* o = out + (size_t)row * n;
         if (row < n) {
-          const T dinv = DINV[(size_t)sel * n + row];
+          const T dinv = f.DINV[(size_t)sel * n + row];
           for (int c = lane; c < n; c += 32)
             o[c] = c >= row ? A::mul(Ms[rowbase(row, n) + c], dinv) : T(0);
         } else {
-          const T* v = (row == n ? WY : WO) + (size_t)sel * n;
+          const T* v = (row == n ? f.WY : f.WO) + (size_t)sel * n;
           for (int c = lane; c < n; c += 32) o[c] = v[c];
         }
       }
     }
     __syncthreads();
   }
-}
-
-// K packed n x n triangles plus five K x n vectors (RY, RO, WY, WO, DINV);
-// ops/chol_smallk.py allocates the same number of elements
-size_t workspace_elems(int n, int K) {
-  return (size_t)K * n * (n + 1) / 2 + (size_t)5 * K * n;
 }
 
 template <typename T>
@@ -426,27 +293,15 @@ int launch(const void* x, const void* y, const void* z, const void* st,
   const T n_log2pi = (T)(n * 1.8378770664093453);   // n * log(2 pi)
   // the workspace goes to shared memory when it fits beside the static
   // arrays (see workspace_elems for its size)
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, mh_rounds_kernel<T, true>);
-  if (err != cudaSuccess) return (int)err;
-  const size_t bytes = workspace_elems(n, K) * sizeof(T);
   cudaStream_t s = (cudaStream_t)stream;
-  if (attr.sharedSizeBytes + bytes <= SMEM_PER_BLOCK) {
-    err = cudaFuncSetAttribute(mh_rounds_kernel<T, true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    mh_rounds_kernel<T, true><<<1, NT, bytes, s>>>(
-        (const T*)x, (const T*)y, (const T*)z, (const T*)st,
-        (const T*)deltas, (const T*)log_u, (T*)rec, (int*)info, (T*)stash,
-        (T*)ws, m, n, d, dim, R, K, (T)jitter, n_log2pi);
-  } else {
-    mh_rounds_kernel<T, false><<<1, NT, 0, s>>>(
-        (const T*)x, (const T*)y, (const T*)z, (const T*)st,
-        (const T*)deltas, (const T*)log_u, (T*)rec, (int*)info, (T*)stash,
-        (T*)ws, m, n, d, dim, R, K, (T)jitter, n_log2pi);
-  }
-  return (int)cudaGetLastError();
+  return launch_smem_or_global(
+      mh_rounds_kernel<T, true>, mh_rounds_kernel<T, false>,
+      workspace_elems(n, K) * sizeof(T), [&](auto kern, size_t bytes) {
+        kern<<<1, NT, bytes, s>>>(
+            (const T*)x, (const T*)y, (const T*)z, (const T*)st,
+            (const T*)deltas, (const T*)log_u, (T*)rec, (int*)info,
+            (T*)stash, (T*)ws, m, n, d, dim, R, K, (T)jitter, n_log2pi);
+      });
 }
 
 }  // namespace

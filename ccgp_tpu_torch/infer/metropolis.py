@@ -1,29 +1,38 @@
-"""Laplace-seeded speculative random-walk Metropolis with Geweke stopping:
-the chunked driver (port of `ccgp_tpu/infer/metropolis.py:310-479`).
+"""Laplace-seeded random-walk Metropolis with Geweke stopping (port of
+`ccgp_tpu/infer/metropolis.py`).
 
 Reference semantics (`1D Codes and Designs/1D Combined GP Public.R:657-719`):
 a fixed Gaussian proposal with covariance sqrt(2) V_hat (V_hat from the
-Laplace fit), started at the Laplace mode; accepted-only recording; a
-Geweke test on the trailing `samp_size` window every `batch_size`
-acceptances past `samp_size`; stop when its p-value reaches alpha_geweke
-or after n_max records.
+Laplace fit), started at the Laplace mode; accepted-only recording (or
+`record="all"`, the textbook chain); a Geweke test on the trailing
+`samp_size` window every `batch_size` records past `samp_size`; stop when
+its p-value reaches alpha_geweke, after n_max records or after
+max_proposals proposals.
 
-Each loop iteration runs a CHUNK of rounds through `mh_rounds` (one launch
-of the fused rounds kernel on the card). The chunk's random stream is
-exactly the per-round one: sequential `split(key, 3)` steps
-(`ops.rng.threefry_split_chain`), then `normal(k1, (K, dim))` and
-`log(uniform(k2, (K,)))` per round. Three phases batch the SAME rounds:
-check-free 120-round warm chunks while no Geweke boundary is reachable,
-check-free 20-round chunks, then the check-aware tail. Caps and the
-Geweke stop truncate a chunk to the prefix of rounds that the one-round
-sampler would have run, so the chain is draw-for-draw the sequential one.
+Three drivers over one random stream (round r: `key, k1, k2 =
+split(key, 3)`, then `normal(k1, (K, dim))` and `log(uniform(k2, (K,)))`):
 
-The loop conditions live on the host: each chunk reads its acc/consumed
-flags back once. The Geweke statistic (a few hundred scalar operations)
-runs on the host copy of its window.
+* the K = 1 body (`speculative` <= 1, `body` in JAX): one proposal per
+  round through `logpost`;
+* the one-round speculative bodies (K > 1): `body_spec` evaluates the K
+  candidates with `logpost_batch` (or `logpost` on the batch) and takes
+  the first acceptance; `body_mh` hands the whole round to `mh_round`
+  (`models.likelihood.make_mh_round`, one launch of the fused round
+  kernel for SE/SE);
+* the chunked driver (`mh_rounds`, K > 1, record="accepted"): each loop
+  iteration runs a CHUNK of rounds through `mh_rounds` (one launch of the
+  fused rounds kernel on the card), with the chunk's keys from
+  `ops.rng.threefry_split_chain`. Three phases batch the SAME rounds:
+  check-free 120-round warm chunks while no Geweke boundary is reachable,
+  check-free 20-round chunks, then the check-aware tail. Caps and the
+  Geweke stop truncate a chunk to the prefix of rounds that the one-round
+  sampler would have run, so the chain is draw-for-draw the sequential
+  one.
 
-Only this driver is ported: the one-round and K=1 bodies and
-record="all" raise NotImplementedError; they stay oracles on the JAX side.
+The loop conditions live on the host: a one-round body reads its
+acceptance back once per round, a chunk its acc/consumed flags once per
+chunk. The Geweke statistic (a few hundred scalar operations) runs on the
+host copy of its window.
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ import torch
 
 from ccgp_tpu_torch.infer.geweke import geweke_pvalue
 from ccgp_tpu_torch.infer.laplace import LaplaceFit, laplace
+from ccgp_tpu_torch.models.likelihood import first_acceptance
 from ccgp_tpu_torch.ops import rng
 
 ROUNDS_PER_CALL_WARM = 120
@@ -81,6 +91,8 @@ def metropolis(
     max_proposals: int | None = None,
     laplace_fit: LaplaceFit | None = None,
     speculative: int = 0,
+    logpost_batch: Callable | None = None,
+    mh_round: Callable | None = None,
     mh_rounds: Callable | None = None,
     rounds_per_call: int = 20,
     rounds_per_call_warm: int = ROUNDS_PER_CALL_WARM,
@@ -88,22 +100,24 @@ def metropolis(
     stash_lanes: int | None = None,
     stash_cap: int | None = None,
 ) -> MetropolisResult:
-    """Run one chain with the chunked speculative driver.
+    """Run one chain.
 
-    logpost(z) returns an object with `.val` and `.beta` (the Laplace fit
-    and the start state); mh_rounds is `models.likelihood.make_mh_rounds`.
-    laplace_fit resumes from a saved Laplace approximation, starting at
-    `start`. With stash_rows set, each recorded draw's stash row
-    (stash_rows x stash_lanes) lands in `factors`, whose capacity
-    `stash_cap` may be below the chain length: a chunk that could write
-    past it clamps, and `factors_ok` turns False."""
+    logpost(z) returns an object with `.val` and `.beta`; it gives the
+    Laplace fit, the start state and, for K = 1, every proposal's value.
+    With K = speculative > 1 the sampler is, in JAX's order of precedence:
+    the chunked one when mh_rounds (`models.likelihood.make_mh_rounds`) is
+    given, else `body_mh` when mh_round (`make_mh_round`) is given, else
+    `body_spec` with logpost_batch (`make_logpost_batch`) or, without it,
+    `logpost` on the (K, dim) batch. laplace_fit resumes from a saved
+    Laplace approximation, starting at `start`. With stash_rows set, each
+    recorded draw's stash row (stash_rows x stash_lanes) lands in
+    `factors`, whose capacity `stash_cap` may be below the chain length: a
+    chunk that could write past it clamps, and `factors_ok` turns False."""
     if record not in ("accepted", "all"):
         raise ValueError(record)
+    if speculative and speculative > 1 and record != "accepted":
+        raise ValueError("speculative proposals need record='accepted'")
     K = int(speculative) if speculative else 1
-    if record != "accepted" or K <= 1 or mh_rounds is None:
-        raise NotImplementedError(
-            "only the chunked speculative driver (speculative > 1, "
-            "mh_rounds, record='accepted') is ported")
     dim = start.shape[-1]
     dtype, dev = start.dtype, start.device
     if max_proposals is None:
@@ -117,10 +131,78 @@ def metropolis(
         fit = laplace_fit
         z0 = start
     with torch.no_grad():
-        return _chunked(logpost, z0, key, fit, n_max, samp_size, batch_size,
-                        alpha_geweke, proposal_cov_scale, max_proposals, K,
-                        mh_rounds, rounds_per_call, rounds_per_call_warm,
-                        stash_rows, stash_lanes, stash_cap, dim, dtype, dev)
+        if mh_rounds is not None and K > 1:
+            return _chunked(logpost, z0, key, fit, n_max, samp_size,
+                            batch_size, alpha_geweke, proposal_cov_scale,
+                            max_proposals, K, mh_rounds, rounds_per_call,
+                            rounds_per_call_warm, stash_rows, stash_lanes,
+                            stash_cap, dim, dtype, dev)
+        return _one_round(logpost, z0, key, fit, n_max, samp_size,
+                          batch_size, alpha_geweke, proposal_cov_scale,
+                          max_proposals, K, record, logpost_batch, mh_round,
+                          dim, dtype, dev)
+
+
+def _one_round(logpost, z0, key, fit, n_max, samp_size, batch_size,
+               alpha_geweke, proposal_cov_scale, max_proposals, K, record,
+               logpost_batch, mh_round, dim, dtype, dev) -> MetropolisResult:
+    """The one-round bodies (`body`, `body_spec`, `body_mh` in JAX): one
+    round per loop iteration, its acceptance read back to the host."""
+    prop_chol = torch.linalg.cholesky(proposal_cov_scale * fit.cov)
+    lp0 = logpost(z0)
+    # one packed row [z | beta | logpost] per record; the row at k_rec is
+    # written every round and kept only when the round records
+    P = torch.zeros((n_max, dim + 2), dtype=dtype, device=dev)
+    key = key.to(dev)
+    z, lpv, lpb = z0, lp0.val, lp0.beta
+    k_rec = n_prop = n_acc = n_rnd = 0
+    pv = 0.0
+    while k_rec < n_max and pv < alpha_geweke and n_prop < max_proposals:
+        ch = rng.split(key, 3)
+        key, k1, k2 = ch[0], ch[1], ch[2]
+        if K == 1:
+            cand = z + prop_chol @ rng.normal(k1, (dim,), dtype)
+            lp_c = logpost(cand)
+            log_u = torch.log(rng.uniform(k2, (), dtype))
+            accept = (lp_c.val - lpv) > log_u
+            z = torch.where(accept, cand, z)
+            lpv = torch.where(accept, lp_c.val, lpv)
+            lpb = torch.where(accept, lp_c.beta, lpb)
+            consumed = 1
+        else:
+            cands = z[None, :] + rng.normal(k1, (K, dim), dtype) @ prop_chol.T
+            log_u = torch.log(rng.uniform(k2, (K,), dtype))
+            if mh_round is not None:
+                zc, vc, bc, accept, consumed = mh_round(z, lpv, lpb, cands,
+                                                        log_u)
+            else:
+                if logpost_batch is not None:
+                    vals, betas = logpost_batch(cands)
+                else:
+                    out = logpost(cands)
+                    vals, betas = out.val, out.beta
+                zc, vc, bc, accept, consumed = first_acceptance(
+                    z, lpv, lpb, cands, vals, betas, log_u)
+            z = torch.where(accept, zc, z)
+            lpv = torch.where(accept, vc, lpv)
+            lpb = torch.where(accept, bc, lpb)
+        P[k_rec] = torch.cat([z, lpb.reshape(1), lpv.reshape(1)])
+        acc_h = bool(accept)
+        rec = acc_h or record == "all"
+        k_rec += int(rec)
+        n_acc += int(acc_h)
+        n_prop += int(consumed)
+        n_rnd += 1
+        if rec and k_rec >= samp_size and k_rec % batch_size == 0:
+            pv = float(geweke_pvalue(P[k_rec - samp_size:k_rec, :dim].cpu()))
+    recorded = torch.arange(n_max, device=dev) < k_rec
+    return MetropolisResult(
+        samples=P[:, :dim], betas=P[:, dim],
+        logposts=torch.where(recorded, P[:, dim + 1],
+                             torch.full_like(P[:, dim + 1], -math.inf)),
+        n_recorded=k_rec, n_proposals=n_prop, n_accepted=n_acc, pvalue=pv,
+        converged=pv >= alpha_geweke, laplace=fit,
+        n_rounds=n_rnd if K > 1 else n_prop)
 
 
 def _chunked(logpost, z0, key, fit, n_max, samp_size, batch_size,

@@ -1,10 +1,12 @@
 """Ordinary-kriging profile-ML fit, the plug-in sigma^2 source (port of
-`ccgp_tpu/infer/mle.py:97-147`, the grid method).
+`ccgp_tpu/infer/mle.py:37-147`).
 
-A dense log-theta grid of 32 Grams, one parabolic refinement, then a
-zoomed grid of 17: two batched factorizations instead of a sequential
-quasi-Newton chain. Scalar rate only. The BFGS multistart method
-(`kriging_mle`) is still to be ported.
+* `kriging_mle` (the default of `fit_combined_gp`): the profile NLL in
+  log-theta, minimized by box-constrained multistart BFGS from jittered
+  evenly spaced starts, rejecting the all-ones-Gram ridge;
+* `kriging_mle_grid`: a dense log-theta grid of 32 Grams, one parabolic
+  refinement, then a zoomed grid of 17 (two batched factorizations instead
+  of a sequential quasi-Newton chain). Scalar rate only.
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ from typing import NamedTuple
 
 import torch
 
-from ccgp_tpu_torch.ops import linalg
+from ccgp_tpu_torch.infer.optim import multistart_minimize
+from ccgp_tpu_torch.ops import linalg, rng
 from ccgp_tpu_torch.ops.chol import chol_quadratics, profile_nll_from_quadratics
 from ccgp_tpu_torch.ops.gp import gls_beta, profile_nll, sigma2_mle
 from ccgp_tpu_torch.ops.kernels import KernelFamily
@@ -22,9 +25,53 @@ from ccgp_tpu_torch.ops.kernels import KernelFamily
 class KrigingMLE(NamedTuple):
     beta: torch.Tensor
     sigma2: torch.Tensor
-    theta: torch.Tensor     # scalar rate
+    theta: torch.Tensor     # scalar rate, or (d,) with ard=True
     nll: torch.Tensor       # profile NLL at the optimum
     chol: torch.Tensor      # Cholesky of the optimal Gram
+
+
+def kriging_mle(family: KernelFamily, x: torch.Tensor, y: torch.Tensor,
+                key: torch.Tensor, ard: bool = False, n_starts: int = 8,
+                log_theta_low: float = -7.0, log_theta_high: float = 7.0,
+                jitter: float = 1e-10, maxiter: int = 100) -> KrigingMLE:
+    """Constant-mean GP fit by profile ML over log theta in the box
+    [log_theta_low, log_theta_high] (one rate per input axis with
+    ard=True). The starts are evenly spaced over the box, each moved by up
+    to 0.2 / n_starts of the span by `rng.uniform(key)`, the JAX package's
+    stream. A Gram whose largest off-diagonal entry reaches 1 - 1e-6 (the
+    degenerate all-ones ridge a global search finds on smooth kernels)
+    scores +inf."""
+    n, d = x.shape[-2], x.shape[-1]
+    k = d if ard else 1
+    dt, dev = x.dtype, x.device
+    eye = torch.eye(n, dtype=dt, device=dev)
+
+    def nll_of_logtheta(lt):
+        theta = torch.exp(lt if ard else lt[0])
+        r = family.gram(x, theta)
+        chol = linalg.jitter_cholesky(r, jitter)
+        nll = profile_nll(chol, y)
+        off_max = torch.max(r * (1.0 - eye))
+        return torch.where(off_max < 1.0 - 1e-6, nll,
+                           torch.full_like(nll, float("inf")))
+
+    span = log_theta_high - log_theta_low
+    u = rng.uniform(key.to(dev), (n_starts, k), dt, -1.0, 1.0)
+    starts = log_theta_low + span * (
+        (torch.arange(n_starts, dtype=dt, device=dev)[:, None] + 0.5)
+        / n_starts + 0.2 * u / n_starts)
+    starts = torch.clamp(starts, log_theta_low, log_theta_high)
+    res = multistart_minimize(
+        nll_of_logtheta, starts,
+        lower=torch.full((k,), log_theta_low, dtype=dt, device=dev),
+        upper=torch.full((k,), log_theta_high, dtype=dt, device=dev),
+        maxiter=maxiter)
+    theta = torch.exp(res.x if ard else res.x[0])
+    chol = linalg.jitter_cholesky(family.gram(x, theta), jitter)
+    beta = gls_beta(chol, y)
+    sigma2 = sigma2_mle(chol, y, beta)
+    return KrigingMLE(beta=beta, sigma2=sigma2, theta=theta, nll=res.fun,
+                      chol=chol)
 
 
 def kriging_mle_grid(family: KernelFamily, x: torch.Tensor, y: torch.Tensor,

@@ -1,6 +1,7 @@
 """BFGS with the semantics of `jax.scipy.optimize.minimize(method="BFGS")`
 (port of `ccgp_tpu/infer/optim.py` and of jax 0.9's
-`_src/scipy/optimize/bfgs.py` and `line_search.py`).
+`_src/scipy/optimize/bfgs.py` and `line_search.py`), and the multistart
+search over it.
 
 Wright & Nocedal, Algorithm 6.1 with the strong-Wolfe line search of
 Algorithm 3.5 and the zoom of Algorithm 3.6 (cubic, quadratic or
@@ -17,9 +18,11 @@ not poison the BFGS state.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
+
+from ccgp_tpu_torch.utils import transforms
 
 
 def _value_and_grad(fn, x: torch.Tensor):
@@ -215,3 +218,46 @@ def minimize_bfgs(fn, x0: torch.Tensor, maxiter: int = 100,
         old_old_fval = f
         x, f, g = x_new, ls.f_k, ls.g_k
     return x, f
+
+
+class MultistartResult(NamedTuple):
+    x: torch.Tensor       # best point found (constrained space)
+    fun: torch.Tensor     # objective value at x
+    xs: torch.Tensor      # all restart solutions
+    funs: torch.Tensor    # all restart objective values
+
+
+def multistart_minimize(fn, starts: torch.Tensor,
+                        lower: Optional[torch.Tensor] = None,
+                        upper: Optional[torch.Tensor] = None,
+                        maxiter: int = 100) -> MultistartResult:
+    """Minimize fn from each of the starts (k, d), optionally in the box
+    [lower, upper] through the tanh reparameterization (starts are then in
+    the constrained space). JAX runs the restarts as one vmapped batch;
+    here they run one after another, each the same BFGS. The best start is
+    chosen by the objective re-evaluated at every solution (BFGS's reported
+    value can belong to a point its line search left), non-finite values
+    losing."""
+    bounded = lower is not None
+    if bounded:
+        lower = torch.as_tensor(lower, dtype=starts.dtype,
+                                device=starts.device)
+        upper = torch.as_tensor(upper, dtype=starts.dtype,
+                                device=starts.device)
+
+        def obj(u):
+            return fn(transforms.tanh_box(u, lower, upper))
+
+        z0 = transforms.tanh_box_inverse(starts, lower, upper)
+    else:
+        obj = fn
+        z0 = starts
+    xs = torch.stack([minimize_bfgs(obj, z, maxiter)[0] for z in z0])
+    with torch.no_grad():
+        funs = torch.stack([obj(u) for u in xs])
+    if bounded:
+        xs = transforms.tanh_box(xs, lower, upper)
+    funs = torch.where(torch.isfinite(funs), funs,
+                       torch.full_like(funs, float("inf")))
+    best = int(torch.argmin(funs))
+    return MultistartResult(x=xs[best], fun=funs[best], xs=xs, funs=funs)

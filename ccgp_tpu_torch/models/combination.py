@@ -91,6 +91,17 @@ def _bcast(v: torch.Tensor) -> torch.Tensor:
     return v if v.ndim == 0 else v[..., None, None]
 
 
+def _mixed_from_shared_raw(spec: MixtureSpec, raw: torch.Tensor, p,
+                           r1_theta, r2_theta) -> torch.Tensor:
+    """R_mix from one theta-independent distance pass shared by both
+    families (the squared distances of isotropic SE, or the 1-D absolute
+    differences of Matern and spline)."""
+    w1, w2, s = mix_weights(p)
+    r1 = spec.kernel1.corr_from_raw(raw, r1_theta)
+    r2 = spec.kernel2.corr_from_raw(raw, r2_theta)
+    return (_bcast(w1) * r1 + _bcast(w2) * r2) / _bcast(s)
+
+
 def _shareable(spec: MixtureSpec) -> bool:
     if spec.kernel1.raw_kind != spec.kernel2.raw_kind:
         return False
@@ -103,19 +114,18 @@ def mixed_gram(spec: MixtureSpec, x: torch.Tensor, params: MixParams,
                predict: bool = False) -> torch.Tensor:
     """R_mix on a point set x (n, d) -> (..., n, n)."""
     th1, th2 = _effective_rates(spec, params, predict)
-    w1, w2, s = mix_weights(params.p)
     if spec.rough == "tied" and spec.kernel1.raw_kind == "sqdist":
+        w1, w2, s = mix_weights(params.p)
         d1 = distance.pairwise_sqdist(x, _axis_rates(spec, th1, params))
         scale = _bcast(1.0 + params.theta2)
         return ((_bcast(w1) * torch.exp(-d1)
                  + _bcast(w2) * torch.exp(-scale * d1)) / _bcast(s))
     if _shareable(spec):
-        raw = spec.kernel1.raw(x)
-        r1 = spec.kernel1.corr_from_raw(raw, th1)
-        r2 = spec.kernel2.corr_from_raw(raw, th2)
-    else:
-        r1 = spec.kernel1.gram(x, _axis_rates(spec, th1, params))
-        r2 = spec.kernel2.gram(x, _axis_rates(spec, th2, params))
+        return _mixed_from_shared_raw(spec, spec.kernel1.raw(x), params.p,
+                                      th1, th2)
+    w1, w2, s = mix_weights(params.p)
+    r1 = spec.kernel1.gram(x, _axis_rates(spec, th1, params))
+    r2 = spec.kernel2.gram(x, _axis_rates(spec, th2, params))
     return (_bcast(w1) * r1 + _bcast(w2) * r2) / _bcast(s)
 
 

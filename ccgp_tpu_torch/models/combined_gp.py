@@ -1,22 +1,28 @@
 """CombinedGP: the end-to-end fit -> predict pipeline (port of
 `ccgp_tpu/models/combined_gp.py`).
 
-  1. plug-in sigma^2 from the grid ordinary-kriging profile-ML fit,
-  2. Laplace-seeded speculative Metropolis with Geweke stopping (the
-     chunked driver; its rounds run in the fused kernel, which also
-     stashes each recorded draw's prediction factors),
-  3. the per-draw factor cache, decoded from the stash (or, with
-     draw_chunk, a lazy cache that predict fills draw_chunk draws at a
-     time through the lanes factor kernel),
+  1. plug-in sigma^2 from an ordinary-kriging profile-ML fit (multistart
+     BFGS by default, or the batched grid),
+  2. Laplace-seeded Metropolis with Geweke stopping,
+  3. the per-draw factor cache: decoded from the sampler's stash where the
+     fused rounds kernel wrote one, else rebuilt by `build_factors` (or,
+     with draw_chunk, a lazy cache that predict fills draw_chunk draws at
+     a time through the lanes factor kernel),
   4. posterior-predictive moments and MC intervals.
 
-Routing: an SE/SE mixture with record="accepted" and speculative K > 1
-inside `dispatch_ok(n, K)` takes the fused rounds and the stash on every
-device (the CPU takes the kernel's plain twin). Outside the envelope the
-same driver runs its plain loop without a stash and the cache is rebuilt,
-as JAX routes it. Both entry points run on the GPU unless device="cpu" is
-asked for, and move their inputs there. Not ported yet:
-mle_method="bfgs", whiten=True, the one-round and K=1 samplers.
+Routing of the sampler, JAX's (`combined_gp.py:145-209`) without its test
+of the backend:
+  * speculative K > 1, SE/SE, record="accepted" and MH_ROUNDS_CHUNKING:
+    the chunked driver; inside `dispatch_ok(n, K)` its rounds run in the
+    fused rounds kernel, which also stashes the factors (the CPU takes the
+    kernel's plain twin);
+  * every other speculative fit: one round per iteration through
+    `make_mh_round` (SE/SE with n <= 256, K <= 16: the fused round kernel;
+    else the batched log-posterior, whose K Grams go to the small-K
+    kernel), and the cache is rebuilt;
+  * speculative <= 1: the K = 1 body.
+Both entry points run on the GPU unless device="cpu" is asked for, and
+move their inputs there. Not ported yet: whiten=True.
 """
 from __future__ import annotations
 
@@ -27,9 +33,10 @@ import torch
 
 from ccgp_tpu_torch.infer.metropolis import (
     ROUNDS_PER_CALL_WARM, MetropolisResult, metropolis)
-from ccgp_tpu_torch.infer.mle import KrigingMLE, kriging_mle_grid
+from ccgp_tpu_torch.infer.mle import KrigingMLE, kriging_mle, kriging_mle_grid
 from ccgp_tpu_torch.models.combination import MixParams, MixtureSpec, unpack
-from ccgp_tpu_torch.models.likelihood import make_logpost, make_mh_rounds
+from ccgp_tpu_torch.models.likelihood import (
+    is_se_mix, make_logpost, make_mh_round, make_mh_rounds)
 from ccgp_tpu_torch.models.priors import InverseGamma
 from ccgp_tpu_torch.ops import rng
 from ccgp_tpu_torch.ops.chol_smallk import dispatch_ok
@@ -40,6 +47,11 @@ from ccgp_tpu_torch.predict.posterior import (
     PosteriorPrediction, posterior_predict, predictive_moments,
     predictive_moments_lazy)
 from ccgp_tpu_torch.utils.device import move, resolve
+
+# routes SE/SE speculative sampling through the chunked driver (the fused
+# rounds kernel with the factor stash); False takes the one-round body with
+# the fused round kernel instead. The two run the same chain.
+MH_ROUNDS_CHUNKING = True
 
 # device-memory budget of the sampler's stash buffer; a chain that records
 # past a capped buffer rebuilds its factor cache instead
@@ -86,36 +98,35 @@ def fit_combined_gp(
     mle_family: Optional[KernelFamily] = None,
     mle_ard: bool = False,
     jitter: float = 0.0,
-    mle_method: str = "grid",
+    mle_method: str = "bfgs",
     whiten: bool = False,
     draw_chunk: Optional[int] = None,
     device="cuda",
 ) -> CombinedGPFit:
-    """Fit the combined GP (see the module docstring for what is ported).
+    """Fit the combined GP (see the module docstring for the routing).
     key is an int64 (2,) threefry key (`ops.rng.PRNGKey`); x, y and key
-    are moved to `device`.
+    are moved to `device`. sigma2=None fits the plug-in by
+    mle_method="bfgs" (`kriging_mle`, keyed by the first half of key) or
+    "grid" (`kriging_mle_grid`, scalar rate only).
 
     draw_chunk: skip the (net, n, n) factor cache and return a LAZY one
     (empty factor arrays, the marker predict dispatches on); the sampler
     still stashes as usual, so the chain is the same. The fit keeps y and
     jitter, so `predict_combined_gp` rebuilds the factors draw_chunk
     draws at a time by itself."""
-    if mle_method != "grid":
-        raise NotImplementedError("only mle_method='grid' is ported")
-    if mle_ard:
-        raise ValueError("mle_method='grid' supports scalar rates only")
     if whiten:
         raise NotImplementedError("whiten is not ported")
-    if not (mcmc.speculative and mcmc.speculative > 1
-            and mcmc.record == "accepted"):
-        raise NotImplementedError(
-            "only the speculative (K > 1) accepted-only sampler is ported")
     dev = resolve(device)
     x = torch.as_tensor(x, device=dev)
     y = torch.as_tensor(y, dtype=x.dtype, device=dev)
     k_mle, k_mcmc = rng.split(key.to(dev), 2)
     family = mle_family or spec.kernel1
-    mle = kriging_mle_grid(family, x, y, jitter=jitter)
+    if mle_method == "grid":
+        if mle_ard:
+            raise ValueError("mle_method='grid' supports scalar rates only")
+        mle = kriging_mle_grid(family, x, y, jitter=jitter)
+    else:
+        mle = kriging_mle(family, x, y, k_mle, ard=mle_ard, jitter=jitter)
     s2 = mle.sigma2 if sigma2 is None else torch.as_tensor(
         sigma2, dtype=x.dtype, device=x.device)
     priors = dict(theta1_prior=theta1_prior, theta2_prior=theta2_prior,
@@ -124,27 +135,33 @@ def fit_combined_gp(
 
     n_train = x.shape[-2]
     K = mcmc.speculative
-    use_stash = dispatch_ok(n_train, K)
-    stash_cap = None
-    if use_stash:
-        row_bytes = (n_train + 2) * n_train * x.element_size()
-        slack = ROUNDS_PER_CALL_WARM + 1
-        cap_allowed = _STASH_BUDGET_BYTES // row_bytes
-        if cap_allowed >= mcmc.n_max + slack:
-            stash_cap = None
-        elif cap_allowed >= mcmc.samp_size + slack:
-            stash_cap = int(cap_allowed)
+    round_fn = rounds_fn = None
+    use_stash, stash_cap = False, None
+    if K and K > 1:
+        if (MH_ROUNDS_CHUNKING and is_se_mix(spec)
+                and mcmc.record == "accepted"):
+            use_stash = dispatch_ok(n_train, K)
+            if use_stash:
+                row_bytes = (n_train + 2) * n_train * x.element_size()
+                slack = ROUNDS_PER_CALL_WARM + 1
+                cap_allowed = _STASH_BUDGET_BYTES // row_bytes
+                if cap_allowed >= mcmc.n_max + slack:
+                    stash_cap = None
+                elif cap_allowed >= mcmc.samp_size + slack:
+                    stash_cap = int(cap_allowed)
+                else:
+                    use_stash = False
+            rounds_fn = make_mh_rounds(spec, x, y, s2, jitter=jitter,
+                                       stash=use_stash, **priors)
         else:
-            use_stash = False
-    rounds_fn = make_mh_rounds(spec, x, y, s2, jitter=jitter,
-                               stash=use_stash, **priors)
+            round_fn = make_mh_round(spec, x, y, s2, jitter=jitter, **priors)
     res = metropolis(logpost, torch.tensor(mcmc.start, dtype=x.dtype,
                                            device=x.device), k_mcmc,
                      n_max=mcmc.n_max, samp_size=mcmc.samp_size,
                      batch_size=mcmc.batch_size,
                      alpha_geweke=mcmc.alpha_geweke, record=mcmc.record,
                      max_proposals=mcmc.max_proposals, speculative=K,
-                     mh_rounds=rounds_fn,
+                     mh_round=round_fn, mh_rounds=rounds_fn,
                      stash_rows=n_train + 2 if use_stash else None,
                      stash_lanes=n_train, stash_cap=stash_cap)
 

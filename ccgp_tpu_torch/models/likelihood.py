@@ -16,11 +16,12 @@ from typing import NamedTuple
 import torch
 
 from ccgp_tpu_torch.models.combination import (
-    MixtureSpec, MixParams, mixed_gram, mix_weights, unpack)
+    MixtureSpec, MixParams, _effective_rates, mixed_gram, mix_weights, unpack)
 from ccgp_tpu_torch.ops import linalg
 from ccgp_tpu_torch.ops.chol import chol_quadratics
 from ccgp_tpu_torch.ops.chol_smallk import (
-    CandModel, PRIOR_NONE, dispatch_ok, fused_mix_mh_rounds)
+    CandModel, PRIOR_NONE, dispatch_ok, fused_mix_mh_round,
+    fused_mix_mh_rounds, fused_mix_quadratics_smallk)
 
 _LOG2PI = math.log(2.0 * math.pi)
 
@@ -34,7 +35,8 @@ class LogPost(NamedTuple):
     params: MixParams      # constrained parameters
 
 
-def _se_mix(spec: MixtureSpec) -> bool:
+def is_se_mix(spec: MixtureSpec) -> bool:
+    """Both components squared exponential (the fused kernels' mixture)."""
     return (spec.kernel1.raw_kind == "sqdist"
             and spec.kernel2.raw_kind == "sqdist")
 
@@ -50,6 +52,21 @@ def _log_prior(spec, params, theta1_prior, theta2_prior, p_prior, like):
     if p_prior is not None:
         log_prior = log_prior + p_prior.log_kernel(params.p)
     return log_prior
+
+
+def _fused_gate(spec: MixtureSpec, n: int, kk: int) -> bool:
+    """JAX's gate for the fused one-round kernels (K6, K7): an SE/SE
+    mixture with n <= 256 and K <= 16 (`likelihood.py:177-178,276-277`),
+    taken here on every device."""
+    return is_se_mix(spec) and n <= 256 and kk <= 16
+
+
+def _rate_rows(spec: MixtureSpec, params: MixParams, kk: int, d: int):
+    """The training rates (K, d) of both components (an isotropic rate
+    repeated over the d axes), as the fused kernels take them."""
+    th1, th2 = _effective_rates(spec, params, predict=False)
+    return (torch.broadcast_to(th1.reshape(kk, -1), (kk, d)),
+            torch.broadcast_to(th2.reshape(kk, -1), (kk, d)))
 
 
 def _finite_or_neg_inf(val: torch.Tensor) -> torch.Tensor:
@@ -89,17 +106,28 @@ def make_logpost_batch(spec: MixtureSpec, x: torch.Tensor, y: torch.Tensor,
                        sigma2, theta1_prior=None, theta2_prior=None,
                        p_prior=None, jitter: float = 0.0,
                        whiten: bool = False):
-    """f(Z (K, dim)) -> (vals (K,), betas (K,)): the K factorizations go
-    through `chol_quadratics` as one batch (the plain branch of the JAX
-    function; its TPU branch reaches a small-K kernel not yet ported)."""
+    """f(Z (K, dim)) -> (vals (K,), betas (K,)). An SE/SE mixture with
+    n <= 256 and K <= 16 builds its Grams inside the fused quadratics
+    kernel (`fused_mix_quadratics_smallk`, K6); every other mixture builds
+    them with `mixed_gram` and sends the K factorizations through
+    `chol_quadratics` as one batch (K <= 16: the small-K kernel K5), as
+    JAX routes them on a TPU. R_mix has a unit diagonal, so the absolute
+    jitter here equals `make_logpost`'s mean-diagonal-relative one."""
     if whiten:
         raise NotImplementedError("whiten=True is not ported yet")
     n = y.shape[-1]
+    n_dim = x.shape[-1]
 
     def logpost_batch(zs: torch.Tensor):
         params, log_jac = unpack(spec, zs)
-        r = mixed_gram(spec, x, params)                    # (K, n, n)
-        q = chol_quadratics(r, y, jitter=jitter)
+        kk = zs.shape[0]
+        if _fused_gate(spec, x.shape[-2], kk):
+            r1, r2 = _rate_rows(spec, params, kk, n_dim)
+            q = fused_mix_quadratics_smallk(x, y, r1, r2, params.p,
+                                            jitter=jitter)
+        else:
+            r = mixed_gram(spec, x, params)                # (K, n, n)
+            q = chol_quadratics(r, y, jitter=jitter)
         beta = q["qoy"] / q["qoo"]
         quad = q["qyy"] - q["qoy"] ** 2 / q["qoo"]
         _, _, s = mix_weights(params.p)
@@ -130,6 +158,60 @@ def cand_model_for(spec: MixtureSpec, x: torch.Tensor, theta1_prior=None,
                 _prior_triple(p_prior)])
 
 
+def make_mh_round(spec: MixtureSpec, x: torch.Tensor, y: torch.Tensor,
+                  sigma2, theta1_prior=None, theta2_prior=None, p_prior=None,
+                  jitter: float = 0.0, whiten: bool = False):
+    """One whole speculative round per call: f(z, lp_val, lp_beta,
+    cands (K, dim), log_u (K,)) -> (z_new, val_new, beta_new, any_acc,
+    consumed) (port of `ccgp_tpu/models/likelihood.py:222-299`).
+
+    An SE/SE mixture with n <= 256 and K <= 16 runs the round in the fused
+    kernel (`fused_mix_mh_round`, K7): the candidates' transforms, priors
+    and log-scales are computed here, the Grams, factorizations,
+    log-posteriors and first-acceptance scan in the kernel. Otherwise the
+    batched log-posterior (`make_logpost_batch`) and the same selection in
+    PyTorch. The random stream and the Markov kernel are the same either
+    way."""
+    if whiten:
+        raise NotImplementedError("whiten=True is not ported yet")
+    n_dim = x.shape[-1]
+    lp_batch = make_logpost_batch(spec, x, y, sigma2,
+                                  theta1_prior=theta1_prior,
+                                  theta2_prior=theta2_prior,
+                                  p_prior=p_prior, jitter=jitter)
+
+    def mh_round(z, lp_val, lp_beta, cands, log_u):
+        kk = cands.shape[0]
+        if _fused_gate(spec, x.shape[-2], kk):
+            params, log_jac = unpack(spec, cands)
+            r1, r2 = _rate_rows(spec, params, kk, n_dim)
+            extra = log_jac + _log_prior(spec, params, theta1_prior,
+                                         theta2_prior, p_prior, log_jac)
+            _, _, s = mix_weights(params.p)
+            return fused_mix_mh_round(x, y, r1, r2, params.p, extra,
+                                      torch.log(s * sigma2), cands, lp_val,
+                                      lp_beta, log_u, jitter=jitter)
+        vals, betas = lp_batch(cands)
+        return first_acceptance(z, lp_val, lp_beta, cands, vals, betas,
+                                 log_u)
+
+    return mh_round
+
+
+def first_acceptance(z, lp_val, lp_beta, cands, vals, betas, log_u):
+    """A speculative round's selection (`body_spec` in JAX): the first
+    candidate whose log-posterior beats its threshold, else the current
+    state. Returns (z_new, val_new, beta_new, any_acc, consumed)."""
+    kk = cands.shape[0]
+    acc = (vals - lp_val) > log_u
+    any_acc = acc.any()
+    first = torch.argmax(acc.to(torch.int32))
+    consumed = torch.where(any_acc, first + 1, kk).to(torch.int32)
+    return (torch.where(any_acc, cands[first], z),
+            torch.where(any_acc, vals[first], lp_val),
+            torch.where(any_acc, betas[first], lp_beta), any_acc, consumed)
+
+
 def make_mh_rounds(spec: MixtureSpec, x: torch.Tensor, y: torch.Tensor,
                    sigma2, theta1_prior=None, theta2_prior=None,
                    p_prior=None, jitter: float = 0.0, stash: bool = False,
@@ -140,15 +222,15 @@ def make_mh_rounds(spec: MixtureSpec, x: torch.Tensor, y: torch.Tensor,
 
     SE/SE mixtures inside `dispatch_ok(n, K)` take the fused rounds
     function on every device (the CUDA kernel for CUDA tensors, its plain
-    twin for CPU tensors), which also emits the stash. Outside the
-    envelope a loop of `make_logpost_batch` evaluations runs the same
-    chain without a stash, as JAX routes it."""
+    twin for CPU tensors), which also emits the stash. Every other mixture
+    and shape runs the same chain as a loop of `make_logpost_batch`
+    evaluations without a stash, as JAX routes it."""
     if whiten:
         raise NotImplementedError("whiten=True is not ported yet")
-    if not _se_mix(spec):
-        raise NotImplementedError("only SE/SE mixtures are ported")
     n = x.shape[-2]
-    model = cand_model_for(spec, x, theta1_prior, theta2_prior, p_prior)
+    se_mix = is_se_mix(spec)
+    model = (cand_model_for(spec, x, theta1_prior, theta2_prior, p_prior)
+             if se_mix else None)
     lp_batch = make_logpost_batch(spec, x, y, sigma2,
                                   theta1_prior=theta1_prior,
                                   theta2_prior=theta2_prior,
@@ -156,7 +238,7 @@ def make_mh_rounds(spec: MixtureSpec, x: torch.Tensor, y: torch.Tensor,
 
     def mh_rounds(z, lp_val, lp_beta, deltas, log_u):
         rr, kk = log_u.shape
-        if dispatch_ok(n, kk):
+        if se_mix and dispatch_ok(n, kk):
             return fused_mix_mh_rounds(x, y, z, lp_val, lp_beta, sigma2,
                                        deltas, log_u, model, jitter=jitter,
                                        stash=stash)
@@ -171,15 +253,11 @@ def make_mh_rounds(spec: MixtureSpec, x: torch.Tensor, y: torch.Tensor,
         for r in range(rr):
             cands = zc[None, :] + dl[r]
             vals, betas = lp_batch(cands)
-            acc = (vals - lpv) > log_u[r]
-            any_acc = acc.any()
-            first = torch.argmax(acc.to(torch.int32))
-            zc = torch.where(any_acc, cands[first], zc)
-            lpv = torch.where(any_acc, vals[first], lpv)
-            lpb = torch.where(any_acc, betas[first], lpb)
+            zc, lpv, lpb, any_acc, consumed = first_acceptance(
+                zc, lpv, lpb, cands, vals, betas, log_u[r])
             rows.append(torch.cat([zc, lpb.reshape(1), lpv.reshape(1)]))
             accs.append(any_acc)
-            cons.append(torch.where(any_acc, first + 1, kk).to(torch.int32))
+            cons.append(consumed)
         return {"rec": torch.stack(rows), "acc": torch.stack(accs),
                 "consumed": torch.stack(cons), "z_fin": zc,
                 "val_fin": lpv, "beta_fin": lpb}

@@ -47,6 +47,16 @@ _SIGNATURES = {
     # grams, y, q, chol, wy, wo, B, n, factors, jitter, stream
     "ccgp_chol_lanes_f32": [_P] * 6 + [_I] * 3 + [_D, _P],
     "ccgp_chol_lanes_f64": [_P] * 6 + [_I] * 3 + [_D, _P],
+    # grams, y, q, ws, n, K, jitter, stream
+    "ccgp_chol_quad_smallk_f32": [_P] * 4 + [_I] * 2 + [_D, _P],
+    "ccgp_chol_quad_smallk_f64": [_P] * 4 + [_I] * 2 + [_D, _P],
+    # x, y, r1, r2, p, q, ws, n, d, K, jitter, stream
+    "ccgp_mix_quad_smallk_f32": [_P] * 7 + [_I] * 3 + [_D, _P],
+    "ccgp_mix_quad_smallk_f64": [_P] * 7 + [_I] * 3 + [_D, _P],
+    # x, y, r1, r2, p, extra, log_scale, cands, st, log_u, z, vb, info, ws,
+    # n, d, dim, K, jitter, stream
+    "ccgp_mix_mh_round_f32": [_P] * 14 + [_I] * 4 + [_D, _P],
+    "ccgp_mix_mh_round_f64": [_P] * 14 + [_I] * 4 + [_D, _P],
 }
 
 def _sources():

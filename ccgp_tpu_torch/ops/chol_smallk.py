@@ -1,17 +1,32 @@
-"""Fused speculative Metropolis rounds (port of
-`ccgp_tpu/ops/pallas_chol_smallk.py:78-83, 1187-1492`).
+"""The small-K latency kernels (port of
+`ccgp_tpu/ops/pallas_chol_smallk.py`): K <= 16 matrices factored together
+by one thread block, each a right-looking Cholesky with the forward solve
+of [y, 1] fused in and logdet and the quadratics accumulated pivot by
+pivot (the core `csrc/chol_core.cuh`). Four wrappers, each with its plain
+PyTorch twin (the same operations in the same order) and a launch counter:
+
+  chol_quadratics_smallk       K5  {logdet, qyy, qoy, qoo} of K
+                                   materialized Grams (lower triangle
+                                   read) + jitter I       csrc/chol_smallk.cu
+  fused_mix_quadratics_smallk  K6  the same for the SE-mixture Gram built
+                                   in the kernel from x, r1, r2, p
+  fused_mix_mh_round           K7  K6, the log-posteriors from the passed
+                                   extra and log_scale, and the first-
+                                   acceptance scan: one speculative round
+  fused_mix_mh_rounds          K1  R whole rounds with the candidate model
+                                   in the kernel, and the stash
+                                                          csrc/mh_rounds.cu
 
 `fused_mix_mh_rounds` runs R whole speculative rounds of the SE-mixture
 sampler. Per round, for each of K candidates z + delta: the candidate
 model (transform, Jacobian, priors; `CandModel`), the SE-mixture Gram
-built from x as sum_k r_k (x_ik - x_jk)^2, a right-looking Cholesky with
-the forward solve of [y, 1] fused in, logdet and the quadratics, the
+built from x as sum_k r_k (x_ik - x_jk)^2, the factorization, the
 log-posterior; then the first-acceptance scan (a NaN log-posterior
 compares False and so rejects) and the state carry.
 
-On a CUDA tensor it launches `csrc/mh_rounds.cu`, one thread block for all
-R rounds. On a CPU tensor it runs `fused_mix_mh_rounds_plain`, which
-performs the same operations in the same order.
+On a CUDA tensor each wrapper launches its kernel, one thread block for
+all K matrices (and, for K1, all R rounds); on a CPU tensor it runs its
+twin. A non-PD matrix gives NaN quadratics, never an exception.
 
 The stash layout is the port's own: (R, n+2, n), row j < n holding
 L[i, j] at column i >= j (zeros below), row n L^-1 y and row n+1 L^-1 1 of
@@ -32,7 +47,7 @@ TILE = 128
 MAX_N = 1024
 DISPATCH_BUDGET = 256
 MAX_K = 16      # candidates per round the kernel holds
-MAX_D = 64      # input dimensions the kernel holds
+MAX_D = TILE    # input dimensions the kernels hold, as in JAX
 _LOG2PI = math.log(2.0 * math.pi)
 
 # prior codes shared with csrc/mh_rounds.cu
@@ -151,6 +166,27 @@ def cand_model_plain(model: CandModel, cz: torch.Tensor, s2):
     return r1, r2, p, extra, torch.log(s * s2)
 
 
+def _se_mix_gram_plain(x, r1, r2, p, jitter):
+    """The K SE-mixture Grams (K, n, n) as the kernels build them:
+    (p^2 e^-D1 + (1-p)^2 e^-D2) / (p^2 + (1-p)^2), D_i = sum_a r_i[a]
+    (x_a - x'_a)^2 accumulated axis by axis, plus jitter on the diagonal."""
+    n, d = x.shape
+    kk = r1.shape[0]
+    diff = x[:, None, :] - x[None, :, :]
+    d2 = diff * diff                                    # (n, n, d)
+    dist1 = torch.zeros((kk, n, n), dtype=x.dtype, device=x.device)
+    dist2 = torch.zeros_like(dist1)
+    for a in range(d):
+        dist1 = dist1 + d2[:, :, a] * r1[:, a, None, None]
+        dist2 = dist2 + d2[:, :, a] * r2[:, a, None, None]
+    w1 = (p * p)[:, None, None]
+    w2 = ((1.0 - p) * (1.0 - p))[:, None, None]
+    m = (w1 * torch.exp(-dist1) + w2 * torch.exp(-dist2)) / (w1 + w2)
+    if jitter:
+        m = m + jitter * torch.eye(n, dtype=x.dtype, device=x.device)
+    return m
+
+
 def _factor_plain(m: torch.Tensor, y: torch.Tensor):
     """Right-looking Cholesky of K symmetric matrices m (K, n, n) with the
     forward solve of [y, 1] fused in; the same unnormalized downdate as
@@ -194,13 +230,10 @@ def fused_mix_mh_rounds_plain(x, y, z, lp_val, lp_beta, sigma2, deltas,
                               log_u, model: CandModel, jitter: float = 0.0,
                               stash: bool = False) -> dict:
     """Plain PyTorch version of `fused_mix_mh_rounds` (same contract)."""
-    n, d = x.shape
+    n = x.shape[0]
     rr, kk = log_u.shape
     dim = deltas.shape[1]
     dt, dev = x.dtype, x.device
-    diff = x[:, None, :] - x[None, :, :]
-    d2 = diff * diff                                    # (n, n, d)
-    eye = torch.eye(n, dtype=dt, device=dev)
     zc = z.clone()
     lpv = torch.as_tensor(lp_val, dtype=dt, device=dev).reshape(())
     lpb = torch.as_tensor(lp_beta, dtype=dt, device=dev).reshape(())
@@ -209,16 +242,7 @@ def fused_mix_mh_rounds_plain(x, y, z, lp_val, lp_beta, sigma2, deltas,
     for r in range(rr):
         cz = zc[None, :] + deltas[r * kk:(r + 1) * kk]
         r1, r2, p, extra, log_scale = cand_model_plain(model, cz, s2)
-        dist1 = torch.zeros((kk, n, n), dtype=dt, device=dev)
-        dist2 = torch.zeros_like(dist1)
-        for a in range(d):
-            dist1 = dist1 + d2[:, :, a] * r1[:, a, None, None]
-            dist2 = dist2 + d2[:, :, a] * r2[:, a, None, None]
-        w1 = (p * p)[:, None, None]
-        w2 = ((1.0 - p) * (1.0 - p))[:, None, None]
-        m = (w1 * torch.exp(-dist1) + w2 * torch.exp(-dist2)) / (w1 + w2)
-        if jitter:
-            m = m + jitter * eye
+        m = _se_mix_gram_plain(x, r1, r2, p, jitter)
         ld, qyy, qoy, qoo, chol, wy, wo = _factor_plain(m, y)
         beta = qoy / qoo
         quad = qyy - qoy * qoy / qoo
@@ -333,3 +357,216 @@ def fused_mix_mh_rounds(x, y, z, lp_val, lp_beta, sigma2, deltas, log_u,
 
 
 fused_mix_mh_rounds.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5, K6, K7: one factorization of K matrices per launch
+# (csrc/chol_smallk.cu)
+# ---------------------------------------------------------------------------
+
+_QUADS = ("logdet", "qyy", "qoy", "qoo")
+
+
+def _quads(ld, qyy, qoy, qoo) -> dict:
+    return dict(zip(_QUADS, (ld, qyy, qoy, qoo)))
+
+
+def _same(name, t, like, shape) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.dtype != like.dtype or t.device != like.device:
+        raise TypeError(f"{name} must match the first input's dtype and "
+                        f"device")
+
+
+def _check_envelope(n: int, kk: int, dtype) -> None:
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"unsupported dtype {dtype}")
+    if kk < 1 or not dispatch_ok(n, kk):
+        raise ValueError(f"(n={n}, K={kk}) is outside the dispatch envelope "
+                         f"(see dispatch_ok)")
+
+
+def _check_grams(grams, y) -> None:
+    if grams.ndim != 3 or grams.shape[1] != grams.shape[2]:
+        raise ValueError(f"grams must be (K, n, n), got {tuple(grams.shape)}")
+    kk, n, _ = grams.shape
+    _check_envelope(n, kk, grams.dtype)
+    _same("y", y, grams, (n,))
+
+
+def _check_mix(x, y, r1, r2, p) -> None:
+    if x.ndim != 2:
+        raise ValueError(f"x must be (n, d), got {tuple(x.shape)}")
+    n, d = x.shape
+    kk = r1.shape[0]
+    _check_envelope(n, kk, x.dtype)
+    if d > MAX_D:
+        raise ValueError(f"d must be <= {MAX_D}")
+    for name, t, shape in (("y", y, (n,)), ("r1", r1, (kk, d)),
+                           ("r2", r2, (kk, d)), ("p", p, (kk,))):
+        _same(name, t, x, shape)
+
+
+def _device_of(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type
+
+
+def _workspace(n: int, kk: int, like: torch.Tensor) -> torch.Tensor:
+    """csrc/chol_core.cuh workspace_elems: K packed triangles and five
+    K x n vectors (moved to shared memory by the kernel when they fit)."""
+    return torch.empty(kk * n * (n + 1) // 2 + 5 * kk * n, dtype=like.dtype,
+                       device=like.device)
+
+
+def _lib_fn(name: str, dtype):
+    lib = _build.library()
+    return getattr(lib, f"{name}_{'f32' if dtype == torch.float32 else 'f64'}")
+
+
+def _lower_with_jitter(grams: torch.Tensor, jitter) -> torch.Tensor:
+    """The matrices K5 factors: each Gram's lower triangle mirrored (the
+    upper triangle is never read) plus jitter on the diagonal."""
+    n = grams.shape[-1]
+    low = torch.ones(n, n, dtype=torch.bool, device=grams.device).tril()
+    m = torch.where(low, grams, grams.transpose(-1, -2))
+    if jitter:
+        m = m + jitter * torch.eye(n, dtype=grams.dtype, device=grams.device)
+    return m
+
+
+def chol_quadratics_smallk_plain(grams, y, jitter=0.0) -> dict:
+    """Plain PyTorch version of `chol_quadratics_smallk` (same contract)."""
+    _check_grams(grams, y)
+    return _quads(*_factor_plain(_lower_with_jitter(grams, jitter), y)[:4])
+
+
+def chol_quadratics_smallk(grams, y, jitter=0.0) -> dict:
+    """{logdet, qyy, qoy, qoo} of K <= 16 Grams (K, n, n) inside
+    `dispatch_ok`, with an absolute jitter on the diagonal; only the lower
+    triangle is read. CUDA tensors launch `csrc/chol_smallk.cu` (K5); CPU
+    tensors take the plain version."""
+    if _device_of(grams) == "cpu":
+        return chol_quadratics_smallk_plain(grams, y, jitter)
+    _check_grams(grams, y)
+    kk, n, _ = grams.shape
+    grams, y = grams.contiguous(), y.contiguous()
+    q = torch.empty((kk, 4), dtype=grams.dtype, device=grams.device)
+    ws = _workspace(n, kk, grams)
+    fn = _lib_fn("ccgp_chol_quad_smallk", grams.dtype)
+    chol_quadratics_smallk.launches += 1
+    _build.check(fn(_build.ptr(grams), _build.ptr(y), _build.ptr(q),
+                    _build.ptr(ws), n, kk, float(jitter),
+                    _build.stream(grams.device)), "chol_quadratics_smallk")
+    return _quads(*q.unbind(1))
+
+
+def fused_mix_quadratics_smallk_plain(x, y, r1, r2, p, jitter=0.0) -> dict:
+    """Plain PyTorch version of `fused_mix_quadratics_smallk`."""
+    _check_mix(x, y, r1, r2, p)
+    return _quads(*_factor_plain(_se_mix_gram_plain(x, r1, r2, p, jitter),
+                                 y)[:4])
+
+
+def fused_mix_quadratics_smallk(x, y, r1, r2, p, jitter=0.0) -> dict:
+    """{logdet, qyy, qoy, qoo} of the K SE-mixture correlations
+    R_k = (p_k^2 e^{-D1_k} + (1-p_k)^2 e^{-D2_k}) / (p_k^2 + (1-p_k)^2),
+    D_i = sum_a r_i[k, a] (x_a - x'_a)^2, built in the kernel from x (n, d),
+    r1, r2 (K, d) and p (K,). CUDA tensors launch `csrc/chol_smallk.cu`
+    (K6); CPU tensors take the plain version."""
+    if _device_of(x) == "cpu":
+        return fused_mix_quadratics_smallk_plain(x, y, r1, r2, p, jitter)
+    _check_mix(x, y, r1, r2, p)
+    n, d = x.shape
+    kk = r1.shape[0]
+    x, y, r1, r2, p = (t.contiguous() for t in (x, y, r1, r2, p))
+    q = torch.empty((kk, 4), dtype=x.dtype, device=x.device)
+    ws = _workspace(n, kk, x)
+    fn = _lib_fn("ccgp_mix_quad_smallk", x.dtype)
+    fused_mix_quadratics_smallk.launches += 1
+    _build.check(fn(_build.ptr(x), _build.ptr(y), _build.ptr(r1),
+                    _build.ptr(r2), _build.ptr(p), _build.ptr(q),
+                    _build.ptr(ws), n, d, kk, float(jitter),
+                    _build.stream(x.device)), "fused_mix_quadratics_smallk")
+    return _quads(*q.unbind(1))
+
+
+def _check_round(x, y, r1, r2, p, extra, log_scale, cands, log_u) -> None:
+    _check_mix(x, y, r1, r2, p)
+    kk = r1.shape[0]
+    if cands.ndim != 2 or cands.shape[1] > MAX_D + 2:
+        raise ValueError(f"cands must be (K, dim <= {MAX_D + 2})")
+    for name, t, shape in (("extra", extra, (kk,)),
+                           ("log_scale", log_scale, (kk,)),
+                           ("cands", cands, (kk, cands.shape[1])),
+                           ("log_u", log_u, (kk,))):
+        _same(name, t, x, shape)
+
+
+def fused_mix_mh_round_plain(x, y, r1, r2, p, extra, log_scale, cands,
+                             lp_val, lp_beta, log_u, jitter=0.0):
+    """Plain PyTorch version of `fused_mix_mh_round` (same contract)."""
+    _check_round(x, y, r1, r2, p, extra, log_scale, cands, log_u)
+    n = x.shape[0]
+    kk = cands.shape[0]
+    ld, qyy, qoy, qoo = _factor_plain(
+        _se_mix_gram_plain(x, r1, r2, p, jitter), y)[:4]
+    lpv = torch.as_tensor(lp_val, dtype=x.dtype, device=x.device).reshape(())
+    lpb = torch.as_tensor(lp_beta, dtype=x.dtype, device=x.device).reshape(())
+    beta = qoy / qoo
+    quad = qyy - qoy * qoy / qoo
+    val = (-0.5 * (n * _LOG2PI + ld + n * log_scale
+                   + quad * torch.exp(-log_scale)) + extra)
+    acc = (val - lpv) > log_u
+    any_acc = acc.any()
+    first = torch.argmax(acc.to(torch.int32))
+    z_new = torch.where(any_acc, cands[first], torch.zeros_like(cands[0]))
+    val_new = torch.where(any_acc, val[first], lpv)
+    beta_new = torch.where(any_acc, beta[first], lpb)
+    consumed = torch.where(any_acc, first + 1, kk).to(torch.int32)
+    return z_new, val_new, beta_new, any_acc, consumed
+
+
+def fused_mix_mh_round(x, y, r1, r2, p, extra, log_scale, cands, lp_val,
+                       lp_beta, log_u, jitter=0.0):
+    """ONE speculative Metropolis round: the K6 quadratics of the K
+    candidates' SE-mixture Grams, val_k = -0.5 (n log 2pi + logdet_k
+    + n log_scale_k + quad_k e^{-log_scale_k}) + extra_k, and the first k
+    with (val_k - lp_val) > log_u[k] (a NaN log-posterior rejects).
+    Returns (z_new (dim,), val_new, beta_new, any_acc, consumed): with no
+    acceptance z_new is 0, val_new = lp_val, beta_new = lp_beta and
+    consumed = K. CUDA tensors launch `csrc/chol_smallk.cu` (K7); CPU
+    tensors take the plain version."""
+    if _device_of(x) == "cpu":
+        return fused_mix_mh_round_plain(x, y, r1, r2, p, extra, log_scale,
+                                        cands, lp_val, lp_beta, log_u,
+                                        jitter)
+    _check_round(x, y, r1, r2, p, extra, log_scale, cands, log_u)
+    n, d = x.shape
+    kk, dim = cands.shape
+    dt, dev = x.dtype, x.device
+    st = torch.stack([torch.as_tensor(v, dtype=dt, device=dev).reshape(())
+                      for v in (lp_val, lp_beta)])
+    # every buffer stays referenced here until the launch is queued
+    bufs = [t.contiguous() for t in (x, y, r1, r2, p, extra, log_scale,
+                                     cands)]
+    bufs += [st, log_u.contiguous()]
+    z_out = torch.empty(dim, dtype=dt, device=dev)
+    vb = torch.empty(2, dtype=dt, device=dev)
+    info = torch.empty(2, dtype=torch.int32, device=dev)
+    ws = _workspace(n, kk, x)
+    fn = _lib_fn("ccgp_mix_mh_round", dt)
+    fused_mix_mh_round.launches += 1
+    _build.check(fn(*(_build.ptr(t) for t in bufs), _build.ptr(z_out),
+                    _build.ptr(vb), _build.ptr(info), _build.ptr(ws), n, d,
+                    dim, kk, float(jitter), _build.stream(dev)),
+                 "fused_mix_mh_round")
+    return z_out, vb[0], vb[1], info[0] > 0, info[1]
+
+
+chol_quadratics_smallk.launches = 0
+fused_mix_quadratics_smallk.launches = 0
+fused_mix_mh_round.launches = 0

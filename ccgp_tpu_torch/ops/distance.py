@@ -1,10 +1,12 @@
-"""Pairwise squared distances (port of `ccgp_tpu/ops/distance.py`).
+"""Pairwise distances (port of `ccgp_tpu/ops/distance.py`).
 
-Built from the rank-1 expansion |a|^2 + |b|^2 - 2 a.b and clamped at 0.
-The inner product must run in full float32: TF32 keeps ~3 decimal digits
-and breaks the PSD structure of ill-conditioned SE Grams. PyTorch's
-default (`torch.backends.cuda.matmul.allow_tf32 = False`) is what these
-functions rely on; `chip_smoke.py` sets it explicitly.
+Squared distances are built from the rank-1 expansion |a|^2 + |b|^2 -
+2 a.b and clamped at 0. The inner product must run in full float32: TF32
+keeps ~3 decimal digits and breaks the PSD structure of ill-conditioned
+SE Grams. PyTorch's default (`torch.backends.cuda.matmul.allow_tf32 =
+False`) is what these functions rely on; `chip_smoke.py` sets it
+explicitly. The 1-D absolute differences feed the Matern and spline
+families.
 """
 from __future__ import annotations
 
@@ -41,3 +43,13 @@ def cross_sqdist(x: torch.Tensor, y: torch.Tensor, theta=1.0) -> torch.Tensor:
     inner = torch.matmul(xw, yw.transpose(-1, -2))
     d2 = sqx[..., :, None] + sqy[..., None, :] - 2.0 * inner
     return torch.clamp_min(d2, 0.0)
+
+
+def pairwise_absdiff(x: torch.Tensor) -> torch.Tensor:
+    """|x_i - x_j| for 1-D inputs x (..., n) -> (..., n, n)."""
+    return torch.abs(x[..., :, None] - x[..., None, :])
+
+
+def cross_absdiff(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """|x_i - y_j| for 1-D inputs: (..., n), (..., m) -> (..., n, m)."""
+    return torch.abs(x[..., :, None] - y[..., None, :])

@@ -3,6 +3,9 @@
 
     log|d theta / d psi| = psi
     log|d p / d phi|     = log sigmoid(phi) + log sigmoid(-phi)
+
+and the tanh box map that turns a box-constrained search into an
+unconstrained one (`infer.optim.multistart_minimize`).
 """
 from __future__ import annotations
 
@@ -34,3 +37,17 @@ def logit_to_unit(phi: torch.Tensor):
 
 def unit_to_logit(p: torch.Tensor) -> torch.Tensor:
     return torch.log(p) - torch.log1p(-p)
+
+
+def tanh_box(z: torch.Tensor, lower, upper) -> torch.Tensor:
+    """R^k -> (lower, upper)^k: mid + half tanh(z)."""
+    mid = 0.5 * (upper + lower)
+    half = 0.5 * (upper - lower)
+    return mid + half * torch.tanh(z)
+
+
+def tanh_box_inverse(x: torch.Tensor, lower, upper) -> torch.Tensor:
+    mid = 0.5 * (upper + lower)
+    half = 0.5 * (upper - lower)
+    u = torch.clamp((x - mid) / half, -1.0 + 1e-7, 1.0 - 1e-7)
+    return torch.atanh(u)

@@ -13,12 +13,19 @@ Phases, in order; any failure raises and the script exits non-zero:
   4. the fused Metropolis-rounds kernel against its plain version on the
      same inputs: equal acceptance flags and consumed counts, records
      and decoded stash within the stated tolerances (bench shape in f32
-     and f64, a multi-tile n in f32, a small n in f64);
+     and f64, a multi-tile n in f32, small n = 16 and 20 in f64);
   7. the batched Cholesky kernels (quadratics K3, factors K4) against
      their plain versions: B in {128, 64, 200, 1728} x n in {100, 14,
      128}, f32 and f64, plus an indefinite and a rank-deficient batch
      whose NaNs must fall on the same matrices, and a batch with NaN
      above the diagonal (only the lower triangle may be read);
+ 11. the small-K kernels against their plain versions: K5 (materialized
+     Grams) over K in {1, 4, 16} x n in {8, 100, 256, 512} and (4, 1024),
+     K6 (in-kernel SE-mixture Grams) and K7 (a whole speculative round:
+     equal any_acc and consumed) over K in {4, 16} x n in {8, 100, 256} x
+     d in {1, 2, 9}, (4, 20, 2) and (4, 100, 128), f32 and f64, plus
+     indefinite batches whose NaNs must fall on the same members, and NaN
+     above the diagonal for K5;
   5. the full-Bayes path: `fit_combined_gp` -> `predict_combined_gp` at the
      bench workload (2-D anisotropic SE x SE, tied rough rates, n = 100,
      25 x 25 lattice, speculative K = 4, n_max 5000, samp_size 1000, f32,
@@ -37,10 +44,21 @@ Phases, in order; any failure raises and the script exits non-zero:
   6. each kernel's time next to its plain version's and a library call's
      at the main paths' shapes: device time under torch.profiler where
      it kept a record of every launch the wrapper counted, else the
-     CUDA-event time per call.
+     CUDA-event time per call;
+ 12. the 1-D models at full width (n = 8, 50 points, f64, function 1 on a
+     numpy-seeded LHD, the --fast MCMC budget): `sim_1d`'s Matern x
+     Matern and `sim_1d_two_families`' Matern x spline with speculative
+     K = 4 (K5 once per round, K4 for the factor rebuild), and the K = 1
+     sampler on Matern x Matern; each on the GPU and on the CPU (plain
+     twins): the same chain, draws and predictions within 1e-8; guards
+     chain_ok, rmspe < 0.3, coverage >= 0.80;
+ 13. the one-round SE routes: the bench workload with
+     `MH_ROUNDS_CHUNKING = False` (K7 once per round, phase 5's guards),
+     and at a small f64 size the chunked (K1), `body_mh` (K7) and
+     `body_spec` (K6) chains, which must agree.
 
-Every path (5, 8, 9, 10) runs with all launch counters set to 0 just
-before it and read just after; each must launch its kernels. The last
+Every path (5, 8, 9, 10, 12, 13) runs with all launch counters set to 0
+just before it and read just after; each must launch its kernels. The last
 lines are a JSON object of kernel records, the card's name and power
 limit, and `{"ok": true, "device": {...}}`.
 """
@@ -203,6 +221,8 @@ def phase_rounds():
         "multi-tile n=300 K=4 R=4 f32"))
     _compare_rounds(_rounds_case(16, 6, torch.float64, 1e-9, seed=2),
                     F64_RTOL, "small n=16 K=4 R=6 f64")
+    _compare_rounds(_rounds_case(20, 6, torch.float64, 1e-6, seed=5),
+                    F64_RTOL, "phases 5 and 13's small slice n=20 K=4 R=6 f64")
     _compare_rounds(_rounds_case(100, 20, torch.float64, 1e-6, seed=4),
                     F64_RTOL, "bench n=100 K=4 R=20 f64")
     return max(errs)
@@ -245,7 +265,11 @@ def _counted():
     return {"threefry_split_chain": rng.threefry_split_chain,
             "fused_mix_mh_rounds": chol_smallk.fused_mix_mh_rounds,
             "chol_quadratics_lanes": chol_lanes.chol_quadratics_lanes,
-            "chol_factors_lanes": chol_lanes.chol_factors_lanes}
+            "chol_factors_lanes": chol_lanes.chol_factors_lanes,
+            "chol_quadratics_smallk": chol_smallk.chol_quadratics_smallk,
+            "fused_mix_quadratics_smallk":
+                chol_smallk.fused_mix_quadratics_smallk,
+            "fused_mix_mh_round": chol_smallk.fused_mix_mh_round}
 
 
 def _zero_counts() -> None:
@@ -653,12 +677,412 @@ def phase_lazy(fit, pred):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the small-K kernels (K5 quadratics of materialized Grams, K6 quadratics
+# of in-kernel SE-mixture Grams, K7 one whole speculative round)
+# ---------------------------------------------------------------------------
+
+def _compare_quads(got, ref, tol, label):
+    """Largest relative and absolute errors of {logdet, qyy, qoy, qoo};
+    raises past tol or where NaNs differ. Also says whether all are
+    bit-equal (NaNs in the same places)."""
+    err = abs_err = 0.0
+    equal = True
+    for k in ref:
+        e = _rel_err(got[k], ref[k])
+        if not e <= tol:
+            raise AssertionError(f"{label}: {k} rel err {e:.3g} > {tol:g} "
+                                 f"(or NaNs differ)")
+        fin = torch.isfinite(ref[k])
+        if bool(fin.any()):
+            abs_err = max(abs_err, float(torch.max(torch.abs(
+                got[k][fin] - ref[k][fin]))))
+        equal = equal and torch.equal(torch.nan_to_num(got[k]),
+                                      torch.nan_to_num(ref[k]))
+        err = max(err, e)
+    return err, abs_err, equal
+
+
+def mix_case(kk, n, d, dtype, seed, indefinite=False):
+    """K6/K7 inputs: x (n, d) uniform, y, rates r1 = e^N(0,1) per axis and
+    r2 = (1 + e^N(0,1)) r1 (the tied rough rate), p in (0.05, 0.95); with
+    indefinite=True the odd members get a negative smooth rate (an
+    indefinite Gram)."""
+    r = np.random.default_rng(seed)
+    x = r.uniform(size=(n, d))
+    r1 = np.exp(r.normal(size=(kk, d)))
+    r2 = (1.0 + np.exp(r.normal(size=(kk, 1)))) * r1
+    if indefinite:
+        r1[1::2] = -5.0
+    t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device="cuda")  # noqa: E731
+    rnd = dict(extra=t(r.normal(size=kk)), log_scale=t(r.normal(size=kk)),
+               cands=t(r.normal(size=(kk, d + 2))), lp_val=t(-1e6),
+               lp_beta=t(0.3), log_u=t(np.log(r.uniform(size=kk))))
+    return dict(x=t(x), y=t(np.sin(5 * x[:, 0])), r1=t(r1), r2=t(r2),
+                p=t(r.uniform(0.05, 0.95, size=kk))), rnd
+
+
+def _compare_round(args, rnd, tol, label):
+    from ccgp_tpu_torch.ops import chol_smallk
+
+    got = chol_smallk.fused_mix_mh_round(**args, **rnd)
+    ref = chol_smallk.fused_mix_mh_round_plain(**args, **rnd)
+    torch.cuda.synchronize()
+    if bool(got[3]) != bool(ref[3]) or int(got[4]) != int(ref[4]):
+        raise AssertionError(f"{label}: K7 any_acc / consumed differ")
+    err = max(_rel_err(a, b) for a, b in zip(got[:3], ref[:3]))
+    if not err <= tol:
+        raise AssertionError(f"{label}: K7 rel err {err:.3g} > {tol:g}")
+    abs_err = max(float(torch.max(torch.abs(a - b)))
+                  for a, b in zip(got[:3], ref[:3]))
+    equal = all(torch.equal(a, b) for a, b in zip(got[:3], ref[:3]))
+    return err, abs_err, equal, int(got[4])
+
+
+def phase_smallk():
+    from ccgp_tpu_torch.ops import chol_smallk
+
+    abs5 = abs6 = abs7 = 0.0
+    for dtype, jitter in ((torch.float32, 1e-3), (torch.float64, 1e-6)):
+        tol = F32_RTOL if dtype == torch.float32 else F64_RTOL
+        t = lambda a: torch.tensor(a, dtype=dtype, device="cuda")  # noqa: E731
+        errs, bit = [], True
+        shapes = [(kk, n) for kk in (1, 4, 16) for n in (8, 100, 256, 512)]
+        for kk, n in shapes + [(4, 1024)]:
+            g, y = (t(a) for a in se_grams(kk, n, seed=kk + n))
+            got = chol_smallk.chol_quadratics_smallk(g, y, jitter=jitter)
+            ref = chol_smallk.chol_quadratics_smallk_plain(g, y,
+                                                           jitter=jitter)
+            torch.cuda.synchronize()
+            e, ae, eq = _compare_quads(got, ref, tol,
+                                       f"K5 K={kk} n={n} {dtype}")
+            errs.append(e)
+            abs5 = max(abs5, ae)
+            bit = bit and eq
+        log(f"[11] K5 chol_quadratics_smallk == plain for K in {{1,4,16}} x "
+            f"n in {{8,100,256,512}} and (4, 1024), {dtype}: max rel err "
+            f"{max(errs):.3g} (tol {tol:g}); bit-equal: {bit}")
+        # only the lower triangle is read; an indefinite batch gives NaN on
+        # the same members in kernel and twin
+        g, y = (t(a) for a in se_grams(4, 100, seed=5))
+        iu = torch.triu_indices(100, 100, 1, device="cuda")
+        junk = g.clone()
+        junk[:, iu[0], iu[1]] = math.nan
+        a = chol_smallk.chol_quadratics_smallk(g, y, jitter=jitter)
+        b = chol_smallk.chol_quadratics_smallk(junk, y, jitter=jitter)
+        if not all(torch.equal(a[k], b[k]) for k in a):
+            raise AssertionError("K5: the upper triangle changed an output")
+        r = np.random.default_rng(4)
+        v = r.normal(size=(16, 40, 20))
+        shift = np.where(np.arange(16) % 2 == 1, -1e-2, 1e-2)
+        g = t(v @ np.swapaxes(v, 1, 2) / 40 + shift[:, None, None]
+              * np.eye(40))
+        y = t(r.normal(size=40))
+        got = chol_smallk.chol_quadratics_smallk(g, y)
+        _, ae, _ = _compare_quads(
+            got, chol_smallk.chol_quadratics_smallk_plain(g, y), tol,
+            f"K5 indefinite {dtype}")
+        abs5 = max(abs5, ae)
+        nan = ~torch.isfinite(got["logdet"])
+        if not torch.equal(nan.cpu(), torch.arange(16) % 2 == 1):
+            raise AssertionError("K5: NaN on the wrong members")
+        log(f"[11] K5 {dtype}: NaN above the diagonal changes no output; "
+            f"an indefinite batch is NaN on its {int(nan.sum())} odd "
+            f"members in kernel and twin")
+
+        errs6, errs7, bit6, bit7, consumed = [], [], True, True, set()
+        cases = [(kk, n, d) for kk in (4, 16) for n in (8, 100, 256)
+                 for d in (1, 2, 9)]
+        # phase 13's small slice, and the widest x the kernels hold
+        cases += [(4, 20, 2), (4, 100, chol_smallk.MAX_D)]
+        for kk, n, d in cases:
+            label = f"K={kk} n={n} d={d} {dtype}"
+            args, rnd = mix_case(kk, n, d, dtype, seed=kk + n + d)
+            got = chol_smallk.fused_mix_quadratics_smallk(**args,
+                                                          jitter=jitter)
+            ref = chol_smallk.fused_mix_quadratics_smallk_plain(**args,
+                                                                jitter=jitter)
+            torch.cuda.synchronize()
+            e, ae, eq = _compare_quads(got, ref, tol, "K6 " + label)
+            errs6.append(e)
+            abs6 = max(abs6, ae)
+            bit6 = bit6 and eq
+            for lp in (-1e6, 0.0, 1e6):
+                rnd["lp_val"] = t(lp)
+                e, ae, eq, c = _compare_round(dict(args, jitter=jitter), rnd,
+                                              tol, label + f" lp_val={lp:g}")
+                errs7.append(e)
+                abs7 = max(abs7, ae)
+                bit7 = bit7 and eq
+                consumed.add(c)
+        log(f"[11] K6 fused_mix_quadratics_smallk == plain and K7 "
+            f"fused_mix_mh_round == plain (any_acc and consumed equal; "
+            f"consumed seen {sorted(consumed)}) for K in {{4,16}} x n in "
+            f"{{8,100,256}} x d in {{1,2,9}}, (4, 20, 2) and (4, 100, "
+            f"{chol_smallk.MAX_D}), {dtype}: max rel err "
+            f"{max(errs6):.3g} / {max(errs7):.3g} (tol {tol:g}); "
+            f"bit-equal: {bit6} / {bit7}")
+        args, rnd = mix_case(8, 30, 2, dtype, seed=9, indefinite=True)
+        args["jitter"] = 1e-2
+        got = chol_smallk.fused_mix_quadratics_smallk(**args)
+        _compare_quads(got, chol_smallk.fused_mix_quadratics_smallk_plain(
+            **args), tol, f"K6 indefinite {dtype}")
+        nan = ~torch.isfinite(got["logdet"])
+        if not torch.equal(nan.cpu(), torch.arange(8) % 2 == 1):
+            raise AssertionError("K6: NaN on the wrong members")
+        rnd.update(lp_val=t(-1e30), extra=t(np.zeros(8)),
+                   log_scale=t(np.zeros(8)),
+                   log_u=t(np.r_[np.inf, np.full(7, -1.0)]))
+        _, _, _, c = _compare_round(args, rnd, tol, f"K7 indefinite {dtype}")
+        if c != 3:
+            raise AssertionError("K7 took a NaN member or skipped member 2")
+        log(f"[11] K6/K7 {dtype}: an indefinite batch is NaN on its 4 odd "
+            f"members in kernel and twin; K7 rejects them (consumed 3)")
+    return abs5, abs6, abs7
+
+
+# ---------------------------------------------------------------------------
+# the 1-D models (`ccgp_tpu/experiments/sim_1d.py`,
+# `sim_1d_two_families.py`) at full width: n = 8, 50 points, f64
+# ---------------------------------------------------------------------------
+
+FAST_1D = dict(start=(0.0, 1.5, 0.0), n_max=1200, samp_size=300,
+               net_samp_size=200)   # the JAX package's --fast budget
+FULL_1D = dict(start=(0.0, 1.5, 0.0), n_max=10000, samp_size=5000,
+               net_samp_size=2500)  # sim_1d.Config's budget
+
+
+def lhd_1d(n, seed):
+    """An n-point Latin hypercube on [0, 1] from a numpy seed (the JAX
+    package's `random_lhs` waits for a port of jax.random.permutation)."""
+    r = np.random.default_rng(seed)
+    return ((r.permutation(n) + r.uniform(size=n)) / n)[:, None]
+
+
+def _spec_1d(name):
+    from ccgp_tpu_torch.models.combination import MixtureSpec
+    from ccgp_tpu_torch.ops import kernels
+
+    second = (kernels.matern_family(5.0) if name == "sim_1d"
+              else kernels.spline_family())
+    return MixtureSpec(kernels.matern_family(5.0), second, dim=1)
+
+
+def fit_predict_1d(name, K, device, budget=FAST_1D, seed=1):
+    """`sim_1d` (Matern(5) x Matern(5)) or `sim_1d_two_families` (Matern(5)
+    x cubic spline) as their `run` composes it: function 1 on an 8-point
+    LHD, IG(3,2) / IG(5,16) priors, the BFGS kriging plug-in (Matern(5)),
+    50 prediction points, Quant against the truth. Returns (fit, pred,
+    x_new, y_true). The design seed is 1: seed 0's design leaves the
+    two-families chain short of Geweke convergence at the --fast budget
+    (1200 records, the cap, after 16318 proposals)."""
+    from ccgp_tpu_torch.eval.functions import test_function_1d
+    from ccgp_tpu_torch.models.combined_gp import (
+        MCMCConfig, fit_combined_gp, predict_combined_gp)
+    from ccgp_tpu_torch.ops import kernels, rng
+
+    t = lambda a: torch.tensor(a, dtype=torch.float64, device=device)  # noqa: E731
+    x = t(lhd_1d(8, seed))
+    y = test_function_1d(x, 1)
+    x_new = t(np.linspace(0.0, 1.0, 50)[:, None])
+    y_true = test_function_1d(x_new, 1)
+    spec = _spec_1d(name)
+    kf, kp = rng.split(rng.PRNGKey(seed, device=device), 2)
+    fit = fit_combined_gp(spec, x, y, kf,
+                          mcmc=MCMCConfig(**budget, speculative=K),
+                          mle_family=kernels.matern_family(5.0),
+                          device=device)
+    pred = predict_combined_gp(spec, fit, x, x_new, kp, quant_ref=y_true,
+                               device=device)
+    return fit, pred, x_new, y_true
+
+
+def _guards_1d(fit, pred, y_true, label):
+    from ccgp_tpu_torch.infer.diagnostics import effective_sample_size
+
+    mean = pred.mean.cpu().numpy()
+    truth = y_true.cpu().numpy()
+    if mean.shape != (50,) or not np.isfinite(mean).all():
+        raise AssertionError(f"{label}: non-finite or misshapen predictions")
+    rmspe = float(np.sqrt(np.mean((truth - mean) ** 2)))
+    lo, hi = pred.lower.cpu().numpy(), pred.upper.cpu().numpy()
+    cover = float(np.mean((truth >= lo) & (truth <= hi)))
+    ess = float(torch.min(effective_sample_size(fit.zs[None].cpu())))
+    if not fit.chain_ok:
+        raise AssertionError(f"{label}: chain unhealthy "
+                             f"(n_recorded={fit.mcmc.n_recorded})")
+    if not rmspe < 0.3:
+        raise AssertionError(f"{label}: rmspe {rmspe} >= 0.3")
+    if not cover >= 0.80:
+        raise AssertionError(f"{label}: coverage {cover} < 0.80")
+    return rmspe, cover, ess
+
+
+def phase_1d():
+    paths = {}
+    for name, K in (("sim_1d", 4), ("sim_1d_two_families", 4),
+                    ("sim_1d", 0)):
+        label = f"{name} K={K or 1}"
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fg, pg, _, y_true = fit_predict_1d(name, K, "cuda")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = _read_counts()
+        t0 = time.perf_counter()
+        fc, pc, _, _ = fit_predict_1d(name, K, "cpu")
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        mg, mc = fg.mcmc, fc.mcmc
+        for a in ("n_recorded", "n_proposals", "n_rounds", "converged"):
+            if getattr(mg, a) != getattr(mc, a):
+                raise AssertionError(f"{label}: {a} differs GPU vs CPU")
+        err_z = _rel_err(fg.zs, fc.zs)
+        err_p = max(_rel_err(getattr(pg, a), getattr(pc, a))
+                    for a in ("mean", "lower", "upper"))
+        if not (err_z <= 1e-8 and err_p <= 1e-8):
+            raise AssertionError(f"{label}: GPU vs CPU draws {err_z:.3g}, "
+                                 f"predictions {err_p:.3g} > 1e-8")
+        rmspe, cover, ess = _guards_1d(fg, pg, y_true, label)
+        log(f"[12] {label}: n_recorded={mg.n_recorded} n_proposals="
+            f"{mg.n_proposals} n_rounds={mg.n_rounds} chain_ok="
+            f"{fg.chain_ok} sigma2={float(fg.sigma2):.8g} rmspe={rmspe:.5f} "
+            f"coverage95={cover:.3f} min_ess={ess:.1f}; GPU == CPU (draws "
+            f"{err_z:.3g}, predictions {err_p:.3g}); fit+predict {ms:.1f} "
+            f"ms on the GPU ({1e3 * ms / mg.n_rounds:.1f} us/round), "
+            f"{cpu_ms:.1f} ms on the CPU (host clock); launches={launches}")
+        if K > 1 and launches["chol_quadratics_smallk"] != mg.n_rounds:
+            raise AssertionError(f"{label}: K5 must launch once per round")
+        _require_launched(launches, ("chol_factors_lanes",), label)
+        paths[label] = launches
+    return paths
+
+
+def phase_sim1d_full():
+    """`sim_1d` as the experiment runs it (K = 1) at its own budget
+    (n_max 10000, samp 5000, net 2500), on the GPU only. Not a phase of
+    the smoke run (tens of minutes); run it alone with
+    python3 -c 'import chip_smoke as s; s.phase_device(); s.phase_build();
+    s.phase_sim1d_full()'."""
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit, pred, _, y_true = fit_predict_1d("sim_1d", 0, "cuda",
+                                          budget=FULL_1D)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _read_counts()
+    rmspe, cover, ess = _guards_1d(fit, pred, y_true, "sim_1d full")
+    mc = fit.mcmc
+    log(f"[sim_1d full budget] K=1: n_recorded={mc.n_recorded} "
+        f"n_proposals={mc.n_proposals} n_rounds={mc.n_rounds} chain_ok="
+        f"{fit.chain_ok} sigma2={float(fit.sigma2):.8g} rmspe={rmspe:.5f} "
+        f"coverage95={cover:.3f} min_ess={ess:.1f}; fit+predict {ms:.1f} "
+        f"ms ({1e3 * ms / mc.n_rounds:.1f} us/round); launches={launches}")
+    _require_launched(launches, ("chol_factors_lanes",), "sim_1d full")
+
+
+# ---------------------------------------------------------------------------
+# the one-round SE routes: the fused round kernel K7 and the fused
+# quadratics kernel K6
+# ---------------------------------------------------------------------------
+
+def phase_one_round():
+    from ccgp_tpu_torch.infer.metropolis import metropolis
+    from ccgp_tpu_torch.models import combined_gp
+    from ccgp_tpu_torch.models.likelihood import (
+        make_logpost, make_logpost_batch, make_mh_round, make_mh_rounds)
+    from ccgp_tpu_torch.models.priors import InverseGamma, LogNormal
+    from ccgp_tpu_torch.ops import rng
+
+    paths = {}
+    x, y, grid = bench_data()
+    combined_gp.MH_ROUNDS_CHUNKING = False
+    try:
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit, pred = _fit_predict(x, y, grid, 7, torch.float32, "cuda", 1e-3,
+                                 **BENCH_CFG)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = _read_counts()
+    finally:
+        combined_gp.MH_ROUNDS_CHUNKING = True
+    mc = fit.mcmc
+    mean = pred.mean.double().cpu().numpy()
+    lo, hi = (pred.lower.double().cpu().numpy(),
+              pred.upper.double().cpu().numpy())
+    if mean.shape != (625,) or not np.isfinite(mean).all():
+        raise AssertionError("one-round path: non-finite predictions")
+    y_true = f2(grid)
+    rmspe = float(np.sqrt(np.mean((y_true - mean) ** 2)))
+    cover = float(np.mean((y_true >= lo) & (y_true <= hi)))
+    log(f"[13] bench workload, one-round route (MH_ROUNDS_CHUNKING = "
+        f"False): n_recorded={mc.n_recorded} n_proposals={mc.n_proposals} "
+        f"n_rounds={mc.n_rounds} chain_ok={fit.chain_ok} rmspe={rmspe:.5f} "
+        f"coverage95={cover:.3f}; fit+predict {ms:.1f} ms (host clock), "
+        f"{1e3 * ms / mc.n_rounds:.1f} us/round; launches={launches}")
+    if not (rmspe < 0.03 and cover >= 0.80 and fit.chain_ok):
+        raise AssertionError("one-round path: phase 5's guards not met")
+    if launches["fused_mix_mh_round"] != mc.n_rounds:
+        raise AssertionError("K7 must launch once per round")
+    paths["one-round bench"] = launches
+
+    # small f64: the chunked (K1), body_mh (K7) and body_spec (K6) chains
+    xs = np.random.default_rng(0).uniform(size=(20, 2))
+    ys = np.sin(5 * xs[:, 0]) + np.cos(3 * xs[:, 1])
+    t = lambda a: torch.tensor(a, dtype=torch.float64, device="cuda")  # noqa: E731
+    args = (_spec(), t(xs), t(ys), t(0.05))
+    pri = dict(theta1_prior=LogNormal(-1.0, 1.0),
+               theta2_prior=InverseGamma(3, 4), jitter=1e-6)
+    logpost = make_logpost(*args, **pri)
+    from ccgp_tpu_torch.infer.laplace import laplace
+
+    fit0 = laplace(lambda z: logpost(z).val, t([1.0, 1.0, 0.0, 0.0]))
+    run = dict(n_max=400, samp_size=120, speculative=4, laplace_fit=fit0)
+    key = rng.PRNGKey(1, device="cuda")
+    chains = {}
+    for route, kw in (("chunked", dict(mh_rounds=make_mh_rounds(*args,
+                                                                **pri))),
+                      ("body_mh", dict(mh_round=make_mh_round(*args, **pri))),
+                      ("body_spec", dict(logpost_batch=make_logpost_batch(
+                          *args, **pri)))):
+        _zero_counts()
+        chains[route] = metropolis(logpost, fit0.mode, key, **run, **kw)
+        paths[f"small f64 {route}"] = _read_counts()
+    ref = chains["chunked"]
+    for route in ("body_mh", "body_spec"):
+        c = chains[route]
+        for a in ("n_recorded", "n_proposals", "n_rounds", "converged"):
+            if getattr(c, a) != getattr(ref, a):
+                raise AssertionError(f"small f64: {route} {a} differs from "
+                                     f"the chunked chain")
+        k = ref.n_recorded
+        err = _rel_err(c.samples[:k], ref.samples[:k])
+        if not err <= 1e-8:
+            raise AssertionError(f"small f64: {route} draws {err:.3g}")
+    for route, kern in (("chunked", "fused_mix_mh_rounds"),
+                        ("body_mh", "fused_mix_mh_round"),
+                        ("body_spec", "fused_mix_quadratics_smallk")):
+        _require_launched(paths[f"small f64 {route}"], (kern,),
+                          f"small f64 {route}")
+    log(f"[13] small f64 (n=20, K=4): the chunked (K1), body_mh (K7) and "
+        f"body_spec (K6) chains agree: n_recorded={ref.n_recorded} "
+        f"n_proposals={ref.n_proposals} n_rounds={ref.n_rounds}, draws "
+        f"within 1e-8")
+    return paths
+
+
 # each counted wrapper's kernel, by substrings of the demangled name the
 # profiler gives it
 _SYMBOLS = {"threefry_split_chain": ("split_chain_kernel",),
             "fused_mix_mh_rounds": ("mh_rounds_kernel<",),
             "chol_quadratics_lanes": ("chol_lanes_kernel<", ", false>"),
-            "chol_factors_lanes": ("chol_lanes_kernel<", ", true>")}
+            "chol_factors_lanes": ("chol_lanes_kernel<", ", true>"),
+            "chol_quadratics_smallk": ("smallk_kernel<", ", 0>"),
+            "fused_mix_quadratics_smallk": ("smallk_kernel<", ", 1>"),
+            "fused_mix_mh_round": ("smallk_kernel<", ", 2>")}
 
 
 def _device_profile(fn, reps, warm=True):
@@ -916,6 +1340,76 @@ def phase_timing(fit):
             f"ms {lib_how} ({lib_call:.4f} ms per call), bound "
             f"{bound[0]:.2e} ms ({bound[1]})")
         out[(kern.__name__, name)] = (k, p, lib, bound)
+    out.update(_smallk_timing())
+    return out
+
+
+def _smallk_timing():
+    """K5 at the 1-D round's shape (K = 4, n = 8, f64) and at n = 100 and
+    512 (f32); K6 and K7 at the bench's one-round shape (K = 4, n = 100,
+    d = 2, f32). Each: device and per-call time, the plain twin's time per
+    call, the library route (cholesky_ex + solve_triangular of [y, 1] on
+    the same K Grams, timed only) and the bound."""
+    from ccgp_tpu_torch.ops import chol_smallk
+
+    out = {}
+    for label, kk, n, dtype, j in (("1-D round", 4, 8, torch.float64, 1e-6),
+                                   ("n=100", 4, 100, torch.float32, 1e-3),
+                                   ("n=512", 4, 512, torch.float32, 1e-3)):
+        g, y = (torch.tensor(a, dtype=dtype, device="cuda")
+                for a in se_grams(kk, n, seed=n))
+        fn = lambda: chol_smallk.chol_quadratics_smallk(g, y, jitter=j)  # noqa: E731
+        call = _cuda_ms(fn, 20)
+        k, how = _kernel_ms("chol_quadratics_smallk", fn, 20, call)
+        p = _cuda_ms(lambda: chol_smallk.chol_quadratics_smallk_plain(
+            g, y, jitter=j), 3)
+        lib_fn = lambda: _library_lanes(g, y, j)  # noqa: E731
+        lib_call = _cuda_ms(lib_fn, 20)
+        lib, lib_how = _library_ms(lib_fn, 20, lib_call)
+        bound = _lanes_bound(kk, n, g.element_size(), False)
+        log(f"[6] chol_quadratics_smallk {label} K={kk} n={n} {dtype}: "
+            f"kernel {k:.4f} ms {how} ({call:.4f} ms per call), plain "
+            f"{p:.3f} ms per call, cholesky_ex+solve_triangular {lib:.4f} "
+            f"ms {lib_how} ({lib_call:.4f} ms per call), bound "
+            f"{bound[0]:.2e} ms ({bound[1]})")
+        out[("chol_quadratics_smallk", label)] = (k, p, lib, bound)
+    kk, n, d, dim = 4, 100, 2, 3
+    args, rnd = mix_case(kk, n, d, torch.float32, seed=7)
+    args["jitter"] = 1e-3
+    grams = chol_smallk._se_mix_gram_plain(args["x"], args["r1"], args["r2"],
+                                           args["p"], 0.0)
+    lib_fn = lambda: _library_lanes(grams, args["y"], 1e-3)  # noqa: E731
+    lib_call = _cuda_ms(lib_fn, 20)
+    lib, lib_how = _library_ms(lib_fn, 20, lib_call)
+    elem = 4
+    # x, y, the rates and weights in; four quadratics per member out
+    nbytes6 = elem * (n * d + n + 2 * kk * d + kk + 4 * kk)
+    ops6 = kk * (n * (n + 1) / 2 * (5 * d + 6) + n ** 3 / 3 + 2 * n * n
+                 + 6 * n)
+    # plus extra, log_scale, log_u, the candidates and the state in; z_new,
+    # [val, beta] and two int32 flags out (the quadratics stay inside)
+    nbytes7 = (nbytes6 - elem * 4 * kk
+               + elem * (3 * kk + kk * dim + 2 + dim + 2) + 8)
+    ops7 = ops6 + 12 * kk
+    for name, fn, plain, nbytes, ops in (
+            ("fused_mix_quadratics_smallk",
+             lambda: chol_smallk.fused_mix_quadratics_smallk(**args),
+             lambda: chol_smallk.fused_mix_quadratics_smallk_plain(**args),
+             nbytes6, ops6),
+            ("fused_mix_mh_round",
+             lambda: chol_smallk.fused_mix_mh_round(**args, **rnd),
+             lambda: chol_smallk.fused_mix_mh_round_plain(**args, **rnd),
+             nbytes7, ops7)):
+        call = _cuda_ms(fn, 20)
+        k, how = _kernel_ms(name, fn, 20, call)
+        p = _cuda_ms(plain, 3)
+        bound = _bound(nbytes, ops, PEAK_OPS[elem])
+        log(f"[6] {name} K={kk} n={n} d={d} f32: kernel {k:.4f} ms {how} "
+            f"({call:.4f} ms per call), plain {p:.3f} ms per call, "
+            f"cholesky_ex+solve_triangular of the same Grams {lib:.4f} ms "
+            f"{lib_how} ({lib_call:.4f} ms per call), bound "
+            f"{bound[0]:.2e} ms ({bound[1]})")
+        out[(name, "n=100")] = (k, p, lib, bound)
     return out
 
 
@@ -933,12 +1427,18 @@ def main() -> int:
     rng_err = phase_rng()
     rounds_err = phase_rounds()
     lanes_err = phase_lanes()
+    k5_err, k6_err, k7_err = phase_smallk()
     paths = {}
     paths["full-Bayes"], fit, pred = phase_main_path()
     paths["MAP"], _, _ = phase_map()
     paths["EB"], _, _ = phase_eb()
     paths["lazy predict"] = phase_lazy(fit, pred)
+    # the kernel timings before the 1-D and one-round paths: after their
+    # hundreds of thousands of small launches the profiler kept no record
+    # of most timing loops
     times = phase_timing(fit)
+    paths.update(phase_1d())
+    paths.update(phase_one_round())
     launches = {k: sum(c[k] for c in paths.values()) for k in _counted()}
     log(f"[launches] per path: {paths}")
     kernels = [
@@ -959,6 +1459,19 @@ def main() -> int:
                 "ccgp_tpu/ops/pallas_chol_lanes.py:154",
                 launches["chol_factors_lanes"], lanes_err,
                 times[("chol_factors_lanes", "lazy_chunk")]),
+        _record("chol_quadratics_smallk", "ccgp_tpu_torch/csrc/chol_smallk.cu",
+                "ccgp_tpu/ops/pallas_chol_smallk.py:850",
+                launches["chol_quadratics_smallk"], k5_err,
+                times[("chol_quadratics_smallk", "1-D round")]),
+        _record("fused_mix_quadratics_smallk",
+                "ccgp_tpu_torch/csrc/chol_smallk.cu",
+                "ccgp_tpu/ops/pallas_chol_smallk.py:960",
+                launches["fused_mix_quadratics_smallk"], k6_err,
+                times[("fused_mix_quadratics_smallk", "n=100")]),
+        _record("fused_mix_mh_round", "ccgp_tpu_torch/csrc/chol_smallk.cu",
+                "ccgp_tpu/ops/pallas_chol_smallk.py:1104",
+                launches["fused_mix_mh_round"], k7_err,
+                times[("fused_mix_mh_round", "n=100")]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

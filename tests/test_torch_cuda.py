@@ -92,6 +92,32 @@ def test_rounds_kernel_equals_plain(cuda, n, rr, dtype, tol):
         chol_smallk.fused_mix_mh_rounds(**dict(args, y=args["y"].cpu()))
 
 
+def test_rounds_kernel_widest_x(cuda):
+    """K1 at d = MAX_D input axes (dim = MAX_D + 2), in f64."""
+    d, n, rr, kk = chol_smallk.MAX_D, 40, 4, 4
+    spec = MixtureSpec(kernels.sqexp_family(), kernels.sqexp_family(),
+                       dim=d, rough="tied", anisotropic=True)
+    r = np.random.default_rng(d)
+    x = r.uniform(size=(n, d))
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float64, device=cuda)
+
+    args = dict(x=t(x), y=t(np.sin(5 * x[:, 0])),
+                z=t(np.r_[np.full(d, np.log(0.02)), 0.1, -0.2]),
+                lp_val=t(-1e6), lp_beta=t(0.0), sigma2=t(0.05),
+                deltas=t(0.1 * r.normal(size=(rr * kk, d + 2))),
+                log_u=t(np.log(r.uniform(size=(rr, kk)))),
+                model=cand_model_for(spec, t(x), LogNormal(-1.0, 1.0),
+                                     InverseGamma(3, 4)),
+                jitter=1e-8, stash=True)
+    got = chol_smallk.fused_mix_mh_rounds(**args)
+    ref = chol_smallk.fused_mix_mh_rounds_plain(**args)
+    assert torch.equal(got["acc"], ref["acc"])
+    assert torch.equal(got["consumed"], ref["consumed"])
+    assert _rel(got["rec"], ref["rec"]) <= 1e-10
+
+
 def _se_grams(b, n, seed):
     r = np.random.default_rng(seed)
     x = r.uniform(size=(n, 2))
@@ -179,3 +205,143 @@ def test_refused_launch_raises_and_leaves_no_error(cuda):
     ref = chol_lanes.chol_quadratics_lanes_plain(g2, y2, jitter=1e-6)
     for k in ref:
         assert _rel(got[k], ref[k]) <= 1e-10
+
+
+# ---------------------------------------------------------------------------
+# the small-K kernels K5 (chol_quadratics_smallk), K6
+# (fused_mix_quadratics_smallk) and K7 (fused_mix_mh_round)
+# ---------------------------------------------------------------------------
+
+def _tol(dtype):
+    return 1e-10 if dtype == torch.float64 else 1e-4
+
+
+def _quads_equal(got, ref, tol):
+    assert set(got) == set(ref)
+    for k in ref:
+        assert _rel(got[k], ref[k]) <= tol, k
+
+
+@pytest.mark.parametrize("kk,n,dtype", [
+    (4, 8, torch.float64),       # the 1-D models' speculative batch
+    (1, 1, torch.float64),
+    (16, 100, torch.float32),
+    (16, 512, torch.float32),    # K tiles^2 = 256, the envelope's edge
+    (4, 1024, torch.float64),    # n = 1024: 16.8 MB, the global workspace
+    (4, 100, torch.float64),     # 178 KB: shared memory after the opt-in
+])
+def test_chol_quadratics_smallk_equals_plain(cuda, kk, n, dtype):
+    g, y = _se_grams(kk, n, seed=kk + n)
+    g, y = (torch.tensor(a, dtype=dtype, device=cuda) for a in (g, y))
+    jitter = 1e-3 if dtype == torch.float32 else 1e-6
+    before = chol_smallk.chol_quadratics_smallk.launches
+    got = chol_smallk.chol_quadratics_smallk(g, y, jitter=jitter)
+    torch.cuda.synchronize()
+    assert chol_smallk.chol_quadratics_smallk.launches == before + 1
+    ref = chol_smallk.chol_quadratics_smallk_plain(g, y, jitter=jitter)
+    _quads_equal(got, ref, _tol(dtype))
+    # only the lower triangle is read
+    iu = torch.triu_indices(n, n, 1, device=cuda)
+    junk = g.clone()
+    junk[:, iu[0], iu[1]] = float("nan")
+    again = chol_smallk.chol_quadratics_smallk(junk, y, jitter=jitter)
+    for k in got:
+        assert torch.equal(again[k], got[k]), k
+    with pytest.raises(TypeError):
+        chol_smallk.chol_quadratics_smallk(g, y.cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chol_quadratics_smallk_nan_on_the_same_members(cuda, dtype):
+    r = np.random.default_rng(4)
+    v = r.normal(size=(16, 40, 20))
+    low = v @ np.swapaxes(v, 1, 2) / 40
+    shift = np.where(np.arange(16) % 2 == 1, -1e-2, 1e-2)
+    g = torch.tensor(low + shift[:, None, None] * np.eye(40), dtype=dtype,
+                     device=cuda)
+    y = torch.tensor(r.normal(size=40), dtype=dtype, device=cuda)
+    got = chol_smallk.chol_quadratics_smallk(g, y)
+    ref = chol_smallk.chol_quadratics_smallk_plain(g, y)
+    nan = ~torch.isfinite(got["logdet"])
+    assert torch.equal(nan.cpu(), torch.arange(16) % 2 == 1)
+    _quads_equal(got, ref, _tol(dtype))
+
+
+def _mix_case(kk, n, d, dtype, cuda, seed, indefinite=False):
+    r = np.random.default_rng(seed)
+    x = r.uniform(size=(n, d))
+    r1 = np.exp(r.normal(size=(kk, d)))
+    r2 = (1.0 + np.exp(r.normal(size=(kk, 1)))) * r1
+    if indefinite:      # a negative rate makes odd members indefinite
+        r1[1::2] = -5.0
+    p = r.uniform(0.05, 0.95, size=kk)
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=cuda)
+
+    return dict(x=t(x), y=t(np.sin(5 * x[:, 0])), r1=t(r1), r2=t(r2),
+                p=t(p)), r
+
+
+@pytest.mark.parametrize("kk,n,d,dtype", [
+    (4, 8, 1, torch.float64),
+    (4, 100, 2, torch.float32),
+    (16, 256, 9, torch.float32),     # the K6/K7 gate's edge, global workspace
+    (16, 256, 1, torch.float64),
+    (4, 20, 2, torch.float64),       # the small one-round chains' shape
+    (4, 40, 128, torch.float64),     # d = MAX_D, dim = MAX_D + 2
+])
+def test_fused_mix_kernels_equal_plain(cuda, kk, n, d, dtype):
+    args, r = _mix_case(kk, n, d, dtype, cuda, seed=n + d)
+    jitter = 1e-3 if dtype == torch.float32 else 1e-8
+    before = chol_smallk.fused_mix_quadratics_smallk.launches
+    got = chol_smallk.fused_mix_quadratics_smallk(**args, jitter=jitter)
+    torch.cuda.synchronize()
+    assert chol_smallk.fused_mix_quadratics_smallk.launches == before + 1
+    _quads_equal(got, chol_smallk.fused_mix_quadratics_smallk_plain(
+        **args, jitter=jitter), _tol(dtype))
+    # K7 on the same Grams: accept-some and accept-none thresholds
+    dim = d + 2
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=cuda)
+
+    rnd = dict(extra=t(r.normal(size=kk)), log_scale=t(r.normal(size=kk)),
+               cands=t(r.normal(size=(kk, dim))), lp_beta=t(0.3))
+    for lp_val, log_u in ((t(-1e6), t(np.log(r.uniform(size=kk)))),
+                          (t(1e6), t(np.log(r.uniform(size=kk))))):
+        before = chol_smallk.fused_mix_mh_round.launches
+        got = chol_smallk.fused_mix_mh_round(**args, **rnd, lp_val=lp_val,
+                                             log_u=log_u, jitter=jitter)
+        torch.cuda.synchronize()
+        assert chol_smallk.fused_mix_mh_round.launches == before + 1
+        ref = chol_smallk.fused_mix_mh_round_plain(
+            **args, **rnd, lp_val=lp_val, log_u=log_u, jitter=jitter)
+        assert bool(got[3]) == bool(ref[3])
+        assert int(got[4]) == int(ref[4])
+        for a, b in zip(got[:3], ref[:3]):
+            assert _rel(a, b) <= _tol(dtype)
+    assert not bool(got[3]) and int(got[4]) == kk   # lp_val = 1e6 rejects
+    assert torch.equal(got[1], t(1e6)) and torch.equal(got[2], t(0.3))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_mix_kernels_nan_on_the_same_members(cuda, dtype):
+    kk, n = 8, 30
+    args, r = _mix_case(kk, n, 2, dtype, cuda, seed=9, indefinite=True)
+    # jitter 1e-2 keeps the PSD members well away from a zero pivot
+    args["jitter"] = 1e-2
+    got = chol_smallk.fused_mix_quadratics_smallk(**args)
+    ref = chol_smallk.fused_mix_quadratics_smallk_plain(**args)
+    nan = ~torch.isfinite(got["logdet"])
+    assert torch.equal(nan.cpu(), torch.arange(kk) % 2 == 1)
+    _quads_equal(got, ref, _tol(dtype))
+    # K7 rejects the NaN members: with thresholds that accept every finite
+    # member, the first even member is taken
+    t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=cuda)  # noqa: E731
+    z = chol_smallk.fused_mix_mh_round(
+        **args, extra=t(np.zeros(kk)), log_scale=t(np.zeros(kk)),
+        cands=t(np.arange(kk * 2.0).reshape(kk, 2)), lp_val=t(-1e30),
+        lp_beta=t(0.0), log_u=t(np.r_[np.inf, np.full(kk - 1, -1.0)]))
+    assert bool(z[3]) and int(z[4]) == 3      # member 1 is NaN, 2 is taken
+    assert torch.equal(z[0].cpu(), torch.tensor([4.0, 5.0], dtype=dtype))

@@ -321,12 +321,32 @@ def test_capped_stash_flags_and_keeps_the_chain(problem, laplace_fit):
 
 
 def test_unported_samplers_raise(problem):
+    """The samplers that raised before this slice now run as JAX routes
+    them: K = 1 ignores mh_rounds (the K = 1 body), K = 4 without
+    mh_rounds takes body_spec on the batched logpost; only the combination
+    JAX refuses, speculative with record="all", still raises, as a
+    ValueError in both packages."""
     x, y, js, ts, jkw, tkw = problem
     lpt = make_logpost(ts, t(x), t(y), t(0.05), **tkw)
+    lpj = jlogpost(js, jnp.asarray(x), jnp.asarray(y), jnp.asarray(0.05),
+                   **jkw)
     rounds_t = make_mh_rounds(ts, t(x), t(y), t(0.05), **tkw)
-    key = key_from_numpy(jax.random.PRNGKey(0), device="cpu")
-    for kw in (dict(speculative=0, mh_rounds=rounds_t),
-               dict(speculative=4, mh_rounds=None),
-               dict(speculative=4, mh_rounds=rounds_t, record="all")):
-        with pytest.raises(NotImplementedError):
-            metropolis(lpt, t(START), key, n_max=10, samp_size=5, **kw)
+    key = jax.random.PRNGKey(0)
+    for kw in (dict(speculative=0), dict(speculative=4)):
+        got = metropolis(lpt, t(START), key_from_numpy(key, device="cpu"),
+                         n_max=40, samp_size=20, mh_rounds=rounds_t
+                         if kw["speculative"] == 0 else None, **kw)
+        ref = jax.jit(lambda k: jmetropolis(
+            lambda z: lpj(z), jnp.asarray(START), k, n_max=40,
+            samp_size=20, **kw))(key)
+        assert got.n_recorded == int(ref.n_recorded)
+        assert got.n_proposals == int(ref.n_proposals)
+        assert_close(got.samples[:got.n_recorded],
+                     np.asarray(ref.samples)[:got.n_recorded], 1e-6)
+    with pytest.raises(ValueError):
+        metropolis(lpt, t(START), key_from_numpy(key, device="cpu"),
+                   n_max=10, samp_size=5, speculative=4,
+                   mh_rounds=rounds_t, record="all")
+    with pytest.raises(ValueError):
+        jmetropolis(lpj, jnp.asarray(START), key, n_max=10, samp_size=5,
+                    speculative=4, record="all")
