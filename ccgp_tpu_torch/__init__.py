@@ -5,32 +5,44 @@ kernels for NVIDIA Hopper (sm_90a). The JAX package stays the reference:
 every module here is held against its JAX counterpart by the tests in
 `tests/test_torch_*.py`.
 
-Layering mirrors `ccgp_tpu` (ops <- models <- infer / predict):
+Layering mirrors `ccgp_tpu` (ops <- models <- infer / predict <-
+experiments <- the CLI):
 
-ops        distances, the correlation families (squared exponential,
-           Matern through the Bessel K_v of `ops/bessel.py`, cubic
-           spline), Cholesky linalg, the quadratics dispatcher and the
-           kernels it routes to (`ops/chol_lanes.py`: wide batches;
-           `ops/chol_smallk.py`: K <= 16 matrices, with the small-K CUDA
-           kernels), special functions, the counter-based threefry RNG
-           (`ops/rng.py`, with the key-chain CUDA kernel) and the fused
-           speculative Metropolis rounds (`ops/chol_smallk.py`, with the
-           rounds CUDA kernel).
-models     convex-combination covariance, priors, transformed
-           log-posterior, the CombinedGP fit/predict pipeline and the
-           converter from the JAX package's state (`models/convert.py`).
-infer      BFGS and its multistart, Laplace, Geweke, the effective sample
-           size, the kriging MLE (BFGS and grid) and the Metropolis
-           drivers (K = 1, one-round speculative, chunked).
-predict    per-draw factor caches, the draw-chunked moments and
-           posterior-predictive aggregation.
-eb         Halton nodes and the empirical-Bayes hyperprior scan.
-eval       the 1-D study's test functions.
-utils      transforms, masked statistics and the entry points' device.
+ops          distances, the correlation families (squared exponential,
+             Matern through the Bessel K_v of `ops/bessel.py`, cubic
+             spline), Cholesky linalg, the quadratics dispatcher and the
+             kernels it routes to (`ops/chol_lanes.py`: wide batches;
+             `ops/chol_smallk.py`: K <= 16 matrices; `ops/chol_nll.py`:
+             the per-matrix kernel of use_pallas=True), the fused
+             mixture-Gram kernel (`ops/gram_chol.py`, exported as
+             `ops.fused_mix_quadratics`), special functions, the
+             counter-based threefry RNG with `permutation` (`ops/rng.py`,
+             with the key-chain CUDA kernel) and the fused speculative
+             Metropolis rounds (`ops/chol_smallk.py`).
+models       convex-combination covariance, priors, transformed
+             log-posterior, the CombinedGP fit/predict pipeline, the two
+             competitor baselines (`models/kriging.py`, the single GP;
+             `models/composite_gp.py`, the composite GP) and the converter
+             from the JAX package's state (`models/convert.py`).
+infer        BFGS and its multistart, Laplace, Geweke, the effective
+             sample size, the kriging MLE (BFGS, grid and the ARD
+             `mlegp_fit`) and the Metropolis drivers (K = 1, one-round
+             speculative, chunked).
+predict      per-draw factor caches, the draw-chunked moments and
+             posterior-predictive aggregation.
+eb           Halton nodes and the empirical-Bayes hyperprior scan.
+design       random and maximin Latin hypercubes.
+eval         the studies' test functions and the comparison summary.
+experiments  the study runner (`run_study`: the combined GP and both
+             baselines, compared) and the four studies that need no data
+             file; `python -m ccgp_tpu_torch <experiment>` (`__main__.py`)
+             runs one and prints its RMSPE, coverage and calibration.
+utils        transforms, masked statistics and the entry points' device.
 
 Entry points (`PRNGKey`, `models.convert`, `fit_combined_gp`,
-`predict_combined_gp`, `eb.choose_hyperpars`) run on the GPU unless
-device="cpu" is asked for; below them, functions take tensors and follow
+`predict_combined_gp`, `eb.choose_hyperpars`, `run_study` and the
+experiments' `run`, the CLI) run on the GPU unless the CPU is asked for
+(device="cpu", or --cpu); below them, functions take tensors and follow
 their device and dtype. Randomness is an
 explicit threefry key (an int64 tensor of shape (2,) holding two uint32
 words), bit-compatible with `jax.random` under the partitionable layout.

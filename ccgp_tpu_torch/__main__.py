@@ -1,0 +1,75 @@
+"""CLI: run a reference case study by name on the GPU (port of
+`ccgp_tpu/__main__.py`).
+
+    python -m ccgp_tpu_torch <experiment> [--fast] [--seed N] [--cpu]
+                             [--f64] [--speculative K]
+
+Experiments: sim_1d, sim_1d_two_families, sim_2d_iso, sim_2d_aniso. The
+study runs on the CUDA device unless --cpu is given (without a GPU it
+fails rather than fall back); --f64 runs it in float64 on either device.
+Prints the RMSPE, coverage and calibration lines of the JAX CLI.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def main(argv=None) -> int:
+    from ccgp_tpu_torch.experiments import PORTED
+
+    ap = argparse.ArgumentParser(prog="python -m ccgp_tpu_torch",
+                                 description=__doc__)
+    ap.add_argument("experiment",
+                    help=f"one of {', '.join(PORTED)}")
+    ap.add_argument("--fast", action="store_true",
+                    help="small MCMC budget (smoke-test scale)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU instead of the CUDA device")
+    ap.add_argument("--f64", action="store_true", help="float64")
+    ap.add_argument("--speculative", type=int, default=0, metavar="K",
+                    help="evaluate K speculative Metropolis proposals per "
+                         "round as one batched factorization: the same "
+                         "Markov kernel, fewer sequential rounds")
+    args = ap.parse_args(argv)
+    if args.experiment not in PORTED:
+        print(f"{args.experiment} is not among the ported experiments "
+              f"({', '.join(PORTED)}); ROADMAP.md (queue 1) says which are "
+              "still to come", file=sys.stderr)
+        return 2
+
+    import torch
+
+    from ccgp_tpu_torch import experiments as ex
+    from ccgp_tpu_torch.models.combined_gp import MCMCConfig
+    from ccgp_tpu_torch.ops import rng
+
+    mod = getattr(ex, args.experiment)
+    cfg = mod.Config()
+    if args.fast:
+        base = cfg.mcmc
+        cfg = type(cfg)(**{**cfg.__dict__, "mcmc": MCMCConfig(
+            start=base.start, n_max=1200, samp_size=300, net_samp_size=200,
+            batch_size=base.batch_size, alpha_geweke=base.alpha_geweke,
+            record=base.record)})
+    if args.speculative > 1:
+        cfg = type(cfg)(**{**cfg.__dict__, "mcmc": MCMCConfig(
+            **{**cfg.mcmc.__dict__, "speculative": args.speculative})})
+    device = "cpu" if args.cpu else "cuda"
+    out = mod.run(cfg, key=rng.PRNGKey(args.seed, device=device),
+                  dtype=torch.float64 if args.f64 else torch.float32,
+                  device=device)
+    s = out.summary
+    print("RMSPE:     ",
+          " | ".join(f"{k} {v:.4f}" for k, v in s.rmspe.items()))
+    if s.coverage:
+        print("coverage:  ",
+              " | ".join(f"{k} {v:.3f}" for k, v in s.coverage.items()))
+    if s.average_quantile is not None:
+        print(f"calibration quantile: {s.average_quantile:.3f} (ideal 0.5)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

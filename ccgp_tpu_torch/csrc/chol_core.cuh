@@ -1,6 +1,7 @@
 // chol_core.cuh: the factorization core of the small-K kernels, shared by
-// csrc/mh_rounds.cu (K1) and csrc/chol_smallk.cu (K5, K6, K7), with the
-// SE-mixture Gram build (K1, K6, K7) and the log-posterior and
+// csrc/mh_rounds.cu (K1), csrc/chol_smallk.cu (K5, K6, K7) and
+// csrc/gram_chol.cu (K8), with the SE-mixture Gram build (K1, K6, K7, K8)
+// and the log-posterior and
 // first-acceptance scan (K1, K7) that come before and after it.
 //
 // K symmetric n x n matrices, each stored as its packed upper triangle
@@ -22,7 +23,8 @@
 // intrinsic, so no multiply-add is contracted, and the operations run in
 // the order of the plain PyTorch version (`_factor_plain` in
 // ops/chol_smallk.py). exp / log / log1p / rsqrt are the CUDA math
-// library's, as PyTorch's elementwise kernels use.
+// library's, as PyTorch's elementwise kernels use; sqrt (for
+// csrc/chol_nll.cu, K9) is IEEE.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -62,6 +64,7 @@ template <> struct Ar<float> {
   static __device__ __forceinline__ float log_(float a) { return logf(a); }
   static __device__ __forceinline__ float log1p_(float a) { return log1pf(a); }
   static __device__ __forceinline__ float rsqrt_(float a) { return rsqrtf(a); }
+  static __device__ __forceinline__ float sqrt_(float a) { return __fsqrt_rn(a); }
 };
 
 template <> struct Ar<double> {
@@ -73,6 +76,7 @@ template <> struct Ar<double> {
   static __device__ __forceinline__ double log_(double a) { return log(a); }
   static __device__ __forceinline__ double log1p_(double a) { return log1p(a); }
   static __device__ __forceinline__ double rsqrt_(double a) { return rsqrt(a); }
+  static __device__ __forceinline__ double sqrt_(double a) { return __dsqrt_rn(a); }
 };
 
 // The block's view of one factorization: the workspace (M, then RY, RO,
@@ -194,16 +198,21 @@ __device__ void factor_quadratics(const Factors<T>& f, int n, int K) {
 //   R = (w1 exp(-sum_a r1_a dx_a^2) + w2 exp(-sum_a r2_a dx_a^2)) / wsum
 //       (+ jitter on the diagonal),
 // w1 = p^2, w2 = (1-p)^2, wsum = w1 + w2, the sums accumulated axis by axis
-// (`_se_mix_gram_plain` in ops/chol_smallk.py). A warp per matrix row.
-// Every thread of the block must call it once r1, r2, w1, w2 and wsum are
-// visible; the caller syncs the block before it factors.
+// (`_se_mix_gram_plain` in ops/chol_smallk.py). With `scale` and `shift`
+// (K each; csrc/gram_chol.cu, K8) each entry becomes scale R + shift before
+// the jitter: a covariance such as the EB scan's sigma2_t R + tau^2 J. A
+// warp per matrix row. Every thread of the block must call it once r1, r2,
+// w1, w2, wsum (and scale, shift) are visible; the caller syncs the block
+// before it factors.
 template <typename T>
 __device__ void build_se_mix_grams(const Factors<T>& f,
                                    const T* __restrict__ x,
                                    const T* __restrict__ y,
                                    const T (*r1)[MAX_D], const T (*r2)[MAX_D],
                                    const T* w1, const T* w2, const T* wsum,
-                                   int n, int d, int K, T jitter) {
+                                   int n, int d, int K, T jitter,
+                                   const T* scale = nullptr,
+                                   const T* shift = nullptr) {
   using A = Ar<T>;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -221,6 +230,7 @@ __device__ void build_se_mix_grams(const Factors<T>& f,
       }
       T v = A::div(A::add(A::mul(w1[k], A::exp_(-dist1)),
                           A::mul(w2[k], A::exp_(-dist2))), wsum[k]);
+      if (scale) v = A::add(A::mul(scale[k], v), shift[k]);
       if (c == i && jitter != T(0)) v = A::add(v, jitter);
       Mi[c] = v;
     }

@@ -1,0 +1,113 @@
+"""The study runner (port of `ccgp_tpu/experiments/common.py`): fit the
+combined GP (plug-in sigma^2 -> Metropolis -> posterior predictive), the
+single GP (ordinary kriging with t-intervals) and the composite GP on the
+same data, then the RMSPE / coverage / calibration table, as the
+reference's `compare.GP` + `Comparison.Summary` (`1D Codes and Designs/1D
+Combined GP Public.R:854-903`).
+
+The key is split in JAX's order, `split(key, 4)` -> (fit, predict,
+composite GP, single GP), so a key gives the JAX package's study.
+"""
+from __future__ import annotations
+
+import warnings
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ccgp_tpu_torch.eval.compare import (
+    ComparisonSummary, ModelPrediction, comparison_summary)
+from ccgp_tpu_torch.infer.diagnostics import effective_sample_size
+from ccgp_tpu_torch.infer.mle import kriging_mle, mlegp_fit
+from ccgp_tpu_torch.models.combination import MixtureSpec
+from ccgp_tpu_torch.models.combined_gp import (
+    CombinedGPFit, MCMCConfig, fit_combined_gp, predict_combined_gp)
+from ccgp_tpu_torch.models.composite_gp import cgp_fit, cgp_predict
+from ccgp_tpu_torch.models.kriging import kriging_predict
+from ccgp_tpu_torch.ops import rng
+from ccgp_tpu_torch.ops.kernels import KernelFamily
+from ccgp_tpu_torch.utils.device import resolve
+
+
+class StudyResult(NamedTuple):
+    summary: ComparisonSummary
+    fit: CombinedGPFit
+    predictions: dict     # model name -> ModelPrediction (numpy)
+    y_true: np.ndarray
+    # min-over-parameters ESS of the retained window: Geweke convergence
+    # alone can hide a random-walk chain that mixes badly
+    min_ess: float = float("nan")
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def run_study(
+    spec: MixtureSpec,
+    x,
+    y,
+    x_new,
+    y_true: np.ndarray,
+    key: torch.Tensor,
+    mcmc: MCMCConfig,
+    theta1_prior,
+    theta2_prior,
+    alpha: float = 0.05,
+    quant_vs_truth: bool = False,     # the 1-D reference's Quant vs y_true
+    mle_family: Optional[KernelFamily] = None,
+    single_variant: str = "reference",  # 'reference' (1-D) | 'mlegp' (>= 2-D)
+    device="cuda",
+) -> StudyResult:
+    """The study on `device` (the GPU unless device="cpu"): x, y, x_new and
+    the key are moved there. The combined GP, the single GP and the
+    composite GP (505 candidates) are all fitted without jitter, and an
+    unhealthy chain warns. With single_variant="mlegp" one `mlegp_fit`
+    gives both the sigma^2 plug-in and the single-GP baseline, as the >= 2-D
+    scripts take both from one mlegp fit; else the combined GP takes its
+    own plug-in and the baseline is `kriging_mle`'s."""
+    dev = resolve(device)
+    x = torch.as_tensor(x, device=dev)
+    y = torch.as_tensor(y, dtype=x.dtype, device=dev)
+    x_new = torch.as_tensor(x_new, dtype=x.dtype, device=dev)
+    k_fit, k_pred, k_cgp, k_single = rng.split(key.to(dev), 4)
+    fam = mle_family or spec.kernel1
+
+    mlegp = single_variant == "mlegp"
+    kfit = mlegp_fit(fam, x, y, k_single, jitter=0.0) if mlegp else None
+    fit = fit_combined_gp(spec, x, y, k_fit, mcmc=mcmc,
+                          theta1_prior=theta1_prior,
+                          theta2_prior=theta2_prior,
+                          sigma2=kfit.sigma2 if mlegp else None,
+                          mle_family=mle_family, device=dev)
+    if not fit.chain_ok:
+        mc = fit.mcmc
+        warnings.warn(
+            f"MCMC chain unhealthy: converged={mc.converged} (Geweke "
+            f"p={mc.pvalue:.3f} < alpha={mcmc.alpha_geweke}), "
+            f"n_recorded={mc.n_recorded} vs samp_size={mcmc.samp_size} "
+            f"after {mc.n_proposals} proposals; the retained window "
+            "duplicates draws if under-filled. Raise n_max/max_proposals.",
+            RuntimeWarning, stacklevel=2)
+    quant_ref = (torch.as_tensor(np.asarray(y_true), dtype=x.dtype,
+                                 device=dev) if quant_vs_truth else None)
+    pred = predict_combined_gp(spec, fit, x, x_new, k_pred, alpha=alpha,
+                               quant_ref=quant_ref, device=dev)
+    predictions = {"combined": ModelPrediction(
+        _np(pred.mean), _np(pred.lower), _np(pred.upper), _np(pred.quant))}
+
+    if kfit is None:
+        kfit = kriging_mle(fam, x, y, k_single, jitter=0.0)
+    kpred = kriging_predict(fam, x, y, kfit, x_new, alpha=alpha,
+                            variant="mlegp" if mlegp else "reference")
+    predictions["single"] = ModelPrediction(
+        _np(kpred.mean), _np(kpred.lower), _np(kpred.upper))
+    cpred = cgp_predict(cgp_fit(x, y, k_cgp), x_new)
+    predictions["cgp"] = ModelPrediction(
+        _np(cpred.mean), _np(cpred.lower), _np(cpred.upper))
+
+    summary = comparison_summary(np.asarray(y_true), predictions)
+    min_ess = float(torch.min(effective_sample_size(fit.zs[None])))
+    return StudyResult(summary=summary, fit=fit, predictions=predictions,
+                       y_true=np.asarray(y_true), min_ess=min_ess)

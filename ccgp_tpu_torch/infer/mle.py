@@ -6,7 +6,10 @@
   evenly spaced starts, rejecting the all-ones-Gram ridge;
 * `kriging_mle_grid`: a dense log-theta grid of 32 Grams, one parabolic
   refinement, then a zoomed grid of 17 (two batched factorizations instead
-  of a sequential quasi-Newton chain). Scalar rate only.
+  of a sequential quasi-Newton chain). Scalar rate only;
+* `mlegp_fit` (`ccgp_tpu/infer/mle.py:150-216`): the per-axis (ARD) fit
+  that replaces `mlegp::mlegp` in the >= 2-D studies, multistart BFGS from
+  the isotropic grid optimum, its per-axis kicks and a Gaussian cloud.
 """
 from __future__ import annotations
 
@@ -113,3 +116,57 @@ def kriging_mle_grid(family: KernelFamily, x: torch.Tensor, y: torch.Tensor,
     sigma2 = sigma2_mle(chol, y, beta)
     return KrigingMLE(beta=beta, sigma2=sigma2, theta=theta,
                       nll=profile_nll(chol, y), chol=chol)
+
+
+# mlegp_fit's search, JAX's defaults: the log-rate box, the Gaussian
+# starts and the BFGS iterations per start
+MLEGP_LOG_THETA = (-14.0, 14.0)
+MLEGP_N_RANDOM = 12
+MLEGP_MAXITER = 300
+
+
+def mlegp_fit(family: KernelFamily, x: torch.Tensor, y: torch.Tensor,
+              key: torch.Tensor, jitter: float = 1e-10) -> KrigingMLE:
+    """ARD Gaussian-correlation GP fit, the framework's `mlegp::mlegp`
+    baseline. The starts, in JAX's order (the multistart's argmin keeps the
+    first of equal values, so the order matters): the isotropic optimum of
+    `kriging_mle_grid` on every axis; then for each axis the kicks +2, -2,
+    +4, -4 of its log rate; then MLEGP_N_RANDOM Gaussian starts around the
+    first, scaled 0.5, 1, 2 in turn (`rng.normal(key)`); all clipped to the
+    box MLEGP_LOG_THETA and refined by box-constrained BFGS."""
+    n, d = x.shape[-2], x.shape[-1]
+    dt, dev = x.dtype, x.device
+    eye = torch.eye(n, dtype=dt, device=dev)
+    iso = kriging_mle_grid(family, x, y, jitter=jitter)
+
+    def nll_of_logtheta(lt):
+        r = family.gram(x, torch.exp(lt))
+        chol = linalg.jitter_cholesky(r, jitter)
+        nll = profile_nll(chol, y)
+        off_max = torch.max(r * (1.0 - eye))
+        return torch.where(off_max < 1.0 - 1e-6, nll,
+                           torch.full_like(nll, float("inf")))
+
+    base = torch.log(iso.theta).expand(d).clone()
+    starts = [base]
+    for j in range(d):
+        for kick in (2.0, -2.0, 4.0, -4.0):
+            s = base.clone()
+            s[j] = s[j] + kick
+            starts.append(s)
+    noise = rng.normal(key.to(dev), (MLEGP_N_RANDOM, d), dt)
+    scales = torch.tensor([0.5, 1.0, 2.0] * (MLEGP_N_RANDOM // 3),
+                          dtype=dt, device=dev)[:, None]
+    starts.extend(base[None, :] + scales * noise)
+    lo, hi = MLEGP_LOG_THETA
+    res = multistart_minimize(
+        nll_of_logtheta, torch.clamp(torch.stack(starts), lo, hi),
+        lower=torch.full((d,), lo, dtype=dt, device=dev),
+        upper=torch.full((d,), hi, dtype=dt, device=dev),
+        maxiter=MLEGP_MAXITER)
+    theta = torch.exp(res.x)
+    chol = linalg.jitter_cholesky(family.gram(x, theta), jitter)
+    beta = gls_beta(chol, y)
+    sigma2 = sigma2_mle(chol, y, beta)
+    return KrigingMLE(beta=beta, sigma2=sigma2, theta=theta, nll=res.fun,
+                      chol=chol)

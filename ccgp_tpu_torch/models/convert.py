@@ -15,6 +15,7 @@ from ccgp_tpu_torch.infer.metropolis import MetropolisResult
 from ccgp_tpu_torch.infer.mle import KrigingMLE
 from ccgp_tpu_torch.models.combination import MixParams
 from ccgp_tpu_torch.models.combined_gp import CombinedGPFit
+from ccgp_tpu_torch.models.composite_gp import CGPFit
 from ccgp_tpu_torch.predict.factors import FactorCache
 from ccgp_tpu_torch.utils.device import resolve
 
@@ -49,6 +50,17 @@ def mle_from_numpy(beta, sigma2, theta, nll, chol, dtype=None,
     device = resolve(device)
     return KrigingMLE(*(_t(v, dtype, device)
                         for v in (beta, sigma2, theta, nll, chol)))
+
+
+def cgp_from_numpy(*, dtype=None, device="cuda", **arrays) -> CGPFit:
+    """A predict-ready `CGPFit` (the composite GP) from its 15 arrays, by
+    field name (`CGPFit._fields`)."""
+    device = resolve(device)
+    missing = set(CGPFit._fields) - set(arrays)
+    if missing or len(arrays) != len(CGPFit._fields):
+        raise ValueError(f"CGPFit needs exactly the fields {CGPFit._fields}")
+    return CGPFit(**{f: _t(arrays[f], dtype, device)
+                     for f in CGPFit._fields})
 
 
 def mcmc_from_numpy(*, samples, betas, logposts, n_recorded, n_proposals,

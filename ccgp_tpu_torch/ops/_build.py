@@ -57,6 +57,12 @@ _SIGNATURES = {
     # n, d, dim, K, jitter, stream
     "ccgp_mix_mh_round_f32": [_P] * 14 + [_I] * 4 + [_D, _P],
     "ccgp_mix_mh_round_f64": [_P] * 14 + [_I] * 4 + [_D, _P],
+    # grams, y, q, B, n, jitter, stream
+    "ccgp_chol_nll_f32": [_P] * 3 + [_I] * 2 + [_D, _P],
+    "ccgp_chol_nll_f64": [_P] * 3 + [_I] * 2 + [_D, _P],
+    # x, y, r1, r2, p, scale, shift, q, B, n, d, jitter, stream
+    "ccgp_gram_chol_f32": [_P] * 8 + [_I] * 3 + [_D, _P],
+    "ccgp_gram_chol_f64": [_P] * 8 + [_I] * 3 + [_D, _P],
 }
 
 def _sources():

@@ -88,6 +88,11 @@ def tri_solve(chol: torch.Tensor, b: torch.Tensor, lower: bool = True,
     return out[..., 0] if vec else out
 
 
+def chol_solve(chol: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b given the lower Cholesky factor of A."""
+    return tri_solve(chol, tri_solve(chol, b), trans=True)
+
+
 def chol_logdet(chol: torch.Tensor) -> torch.Tensor:
     """log det A from its lower Cholesky factor."""
     return 2.0 * torch.sum(

@@ -12,6 +12,8 @@ left shift. The layouts are those of jax 0.9 with
   random_bits(key, 32)   bits1 ^ bits2 over the flat iota of the shape
   random_bits(key, 64)   (bits1 << 32) | bits2
   uniform / normal       mantissa fill, then sqrt(2) * erfinv
+  permutation(key, x)    ceil(3 ln(size) / ln(2**32 - 1)) rounds, each a
+                         split and a stable sort by 32 random bits
 
 `threefry_split_chain` runs rr sequential `key, k1, k2 = split(key, 3)`
 steps: the chunked Metropolis driver's per-round keys. On a CUDA tensor it
@@ -126,6 +128,26 @@ def normal(key: torch.Tensor, shape=(), dtype=torch.float64) -> torch.Tensor:
     u = uniform(key, shape, dtype, lo, 1.0)
     sqrt2 = torch.tensor(math.sqrt(2.0), dtype=dtype, device=key.device)
     return sqrt2 * torch.special.erfinv(u)
+
+
+def permutation(key: torch.Tensor, x) -> torch.Tensor:
+    """jax.random.permutation: x an int n (a shuffled arange(n), int64) or a
+    1-D tensor (its entries shuffled). JAX 0.9's sort-based `_shuffle`:
+    each round splits the key and sorts stably by `random_bits(subkey,
+    32)`, the uint32 words held in int64."""
+    if isinstance(x, torch.Tensor) and x.ndim:
+        if x.ndim != 1:
+            raise ValueError("permutation shuffles an int or a 1-D tensor")
+        x = x.to(key.device)
+    else:
+        x = torch.arange(int(x), dtype=torch.int64, device=key.device)
+    size = x.shape[0]
+    rounds = math.ceil(3 * math.log(max(1, size)) / math.log(_M32))
+    for _ in range(rounds):
+        key, subkey = split(key)
+        order = torch.sort(random_bits(subkey, 32, (size,)), stable=True)[1]
+        x = x[order]
+    return x
 
 
 # ---------------------------------------------------------------------------

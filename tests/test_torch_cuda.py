@@ -7,8 +7,8 @@ run them there without the conftest:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
 Tolerances: the threefry chain is integer-exact. The rounds kernel and
-the batched Cholesky kernels run their plain versions' operations in the
-same order with explicitly rounded arithmetic, so acceptance flags,
+the batched Cholesky kernels (K3-K9) run their plain versions' operations
+in the same order with explicitly rounded arithmetic, so acceptance flags,
 consumed counts and NaN positions are equal, and records, factors and
 quadratics agree to 1e-4 (float32) and 1e-10 (float64) relative to
 max(1, |value|) — room for the math library's exp / log / rsqrt, which
@@ -21,7 +21,8 @@ import torch
 from ccgp_tpu_torch.models.combination import MixtureSpec
 from ccgp_tpu_torch.models.likelihood import cand_model_for
 from ccgp_tpu_torch.models.priors import InverseGamma, LogNormal
-from ccgp_tpu_torch.ops import _build, chol_lanes, chol_smallk, kernels, rng
+from ccgp_tpu_torch.ops import (_build, chol_lanes, chol_nll, chol_smallk,
+                                gram_chol, kernels, rng)
 from ccgp_tpu_torch.predict.factors import decode_stash
 
 pytestmark = pytest.mark.cuda
@@ -345,3 +346,94 @@ def test_fused_mix_kernels_nan_on_the_same_members(cuda, dtype):
         lp_beta=t(0.0), log_u=t(np.r_[np.inf, np.full(kk - 1, -1.0)]))
     assert bool(z[3]) and int(z[4]) == 3      # member 1 is NaN, 2 is taken
     assert torch.equal(z[0].cpu(), torch.tensor([4.0, 5.0], dtype=dtype))
+
+
+# ---------------------------------------------------------------------------
+# K9 (chol_nll, the per-matrix left-looking kernel) and K8
+# (fused_mix_quadratics, the fused mixture-Gram kernel)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,n,dtype", [
+    (128, 100, torch.float32),     # the MAP cloud
+    (4, 33, torch.float64),
+    (1, 128, torch.float64),       # 133 KB of shared memory after the opt-in
+    (32, 14, torch.float32),
+    (5, 1, torch.float64),
+])
+def test_chol_nll_equals_plain(cuda, b, n, dtype):
+    g, y = _se_grams(b, n, seed=b + n)
+    g, y = (torch.tensor(a, dtype=dtype, device=cuda) for a in (g, y))
+    jitter = 1e-3 if dtype == torch.float32 else 1e-6
+    before = chol_nll.chol_nll.launches
+    got = chol_nll.chol_nll(g, y, jitter=jitter)
+    torch.cuda.synchronize()
+    assert chol_nll.chol_nll.launches == before + 1
+    _quads_equal(got, chol_nll.chol_nll_plain(g, y, jitter=jitter),
+                 _tol(dtype))
+    iu = torch.triu_indices(n, n, 1, device=cuda)
+    junk = g.clone()
+    junk[:, iu[0], iu[1]] = float("nan")
+    again = chol_nll.chol_nll(junk, y, jitter=jitter)
+    for k in got:
+        assert torch.equal(again[k], got[k]), k
+    with pytest.raises(TypeError):
+        chol_nll.chol_nll(g, y.cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chol_nll_nan_on_the_same_members(cuda, dtype):
+    r = np.random.default_rng(4)
+    v = r.normal(size=(16, 40, 20))
+    low = v @ np.swapaxes(v, 1, 2) / 40
+    shift = np.where(np.arange(16) % 2 == 1, -1e-2, 1e-2)
+    g = torch.tensor(low + shift[:, None, None] * np.eye(40), dtype=dtype,
+                     device=cuda)
+    y = torch.tensor(r.normal(size=40), dtype=dtype, device=cuda)
+    got = chol_nll.chol_nll(g, y)
+    nan = ~torch.isfinite(got["logdet"])
+    assert torch.equal(nan.cpu(), torch.arange(16) % 2 == 1)
+    _quads_equal(got, chol_nll.chol_nll_plain(g, y), _tol(dtype))
+
+
+@pytest.mark.parametrize("b,n,d,dtype,per_lane", [
+    (1728, 14, 2, torch.float64, True),    # an EB row
+    (128, 100, 2, torch.float32, False),   # the MAP cloud's shape
+    (5, 128, 16, torch.float64, True),     # the limits: 71 KB of workspace
+    (1, 26, 9, torch.float32, True),
+])
+def test_fused_mix_quadratics_equals_plain(cuda, b, n, d, dtype, per_lane):
+    r = np.random.default_rng(b + n + d)
+    x = r.uniform(size=(n, d))
+    r1 = np.exp(r.normal(size=(b, d)))
+    r2 = (1.0 + np.exp(r.normal(size=(b, 1)))) * r1
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=cuda)
+
+    args = dict(x=t(x), y=t(np.sin(5 * x[:, 0])), r1=t(r1), r2=t(r2),
+                p=t(r.uniform(0.05, 0.95, size=b)))
+    if per_lane:
+        args.update(scale=t(r.uniform(0.5, 2.0, b)),
+                    shift=t(r.uniform(0.0, 3.0, b)))
+    else:
+        args.update(scale=1.3, shift=0.2)
+    jitter = 1e-3 if dtype == torch.float32 else 1e-8
+    before = gram_chol.fused_mix_quadratics.launches
+    got = gram_chol.fused_mix_quadratics(**args, jitter=jitter)
+    torch.cuda.synchronize()
+    assert gram_chol.fused_mix_quadratics.launches == before + 1
+    _quads_equal(got, gram_chol.fused_mix_quadratics_plain(**args,
+                                                            jitter=jitter),
+                 _tol(dtype))
+    with pytest.raises(TypeError):
+        gram_chol.fused_mix_quadratics(**dict(args, y=args["y"].cpu()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_mix_quadratics_nan_on_the_same_lanes(cuda, dtype):
+    args, _ = _mix_case(8, 30, 2, dtype, cuda, seed=9, indefinite=True)
+    got = gram_chol.fused_mix_quadratics(**args, scale=2.0, jitter=1e-2)
+    nan = ~torch.isfinite(got["logdet"])
+    assert torch.equal(nan.cpu(), torch.arange(8) % 2 == 1)
+    _quads_equal(got, gram_chol.fused_mix_quadratics_plain(
+        **args, scale=2.0, jitter=1e-2), _tol(dtype))

@@ -1,8 +1,9 @@
 """The port's counter-based threefry RNG (`ccgp_tpu_torch.ops.rng`) against
 `jax.random` (jax_threefry_partitionable, the jax 0.9 default) and the
-Pallas split-chain kernel in interpret mode.
+Pallas split-chain kernel in interpret mode; `permutation` and the Latin
+hypercube designs built on it (`ccgp_tpu_torch.design.lhs`).
 
-Keys and bits: integer equality. Uniforms on [0, 1): exact equality (the
+Keys, bits, permutations and designs: integer (bit) equality. Uniforms on [0, 1): exact equality (the
 same mantissa construction). Normals: <= 1e-12 absolute (erfinv is computed by
 torch and by XLA with different approximations).
 """
@@ -12,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+from ccgp_tpu.design import lhs as jlhs
 from ccgp_tpu.ops.pallas_rng import threefry_split_chain as jax_chain
+from ccgp_tpu_torch.design import lhs
 from ccgp_tpu_torch.ops import rng
 
 SEEDS = [0, 7, 123456789, 2**40 + 5]
@@ -130,3 +133,34 @@ def test_cpu_keys_never_launch_the_kernel():
     before = rng.threefry_split_chain.launches
     rng.threefry_split_chain(rng.PRNGKey(1, device="cpu"), 20)
     assert rng.threefry_split_chain.launches == before
+
+
+@pytest.mark.parametrize("n", [1, 8, 14, 505, 70000])   # 70000: two rounds
+@pytest.mark.parametrize("seed", [0, 123456789])
+def test_permutation_of_a_range(seed, n):
+    got = rng.permutation(rng.PRNGKey(seed, device="cpu"), n)
+    ref = jax.random.permutation(jax.random.PRNGKey(seed), n)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), as_i64(ref))
+
+
+def test_permutation_of_a_tensor():
+    base = (np.arange(505) + 0.5) / 505
+    got = rng.permutation(rng.PRNGKey(5, device="cpu"), torch.tensor(base))
+    ref = jax.random.permutation(jax.random.PRNGKey(5), jnp.asarray(base))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    with pytest.raises(ValueError):
+        rng.permutation(rng.PRNGKey(5, device="cpu"), torch.zeros(2, 2))
+
+
+@pytest.mark.parametrize("n,d", [(8, 1), (14, 2), (30, 5)])
+def test_random_and_maximin_lhs(n, d):
+    kj, kt = jax.random.PRNGKey(n + d), rng.PRNGKey(n + d, device="cpu")
+    np.testing.assert_array_equal(lhs.random_lhs(kt, n, d).numpy(),
+                                  np.asarray(jlhs.random_lhs(kj, n, d)))
+    np.testing.assert_array_equal(
+        lhs.maximin_lhs(kt, n, d, n_candidates=8).numpy(),
+        np.asarray(jlhs.maximin_lhs(kj, n, d, n_candidates=8)))
+    f32 = lhs.random_lhs(kt, n, d, dtype=torch.float32)
+    np.testing.assert_array_equal(
+        f32.numpy(), np.asarray(jlhs.random_lhs(kj, n, d, jnp.float32)))
