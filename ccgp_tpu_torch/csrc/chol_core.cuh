@@ -1,8 +1,10 @@
 // chol_core.cuh: the factorization core of the small-K kernels, shared by
-// csrc/mh_rounds.cu (K1), csrc/chol_smallk.cu (K5, K6, K7) and
-// csrc/gram_chol.cu (K8), with the SE-mixture Gram build (K1, K6, K7, K8)
-// and the log-posterior and
-// first-acceptance scan (K1, K7) that come before and after it.
+// csrc/chol_smallk.cu (K5, K6, K7), csrc/gram_chol.cu (K8) and the
+// multi-tile path (n > 128) of csrc/mh_rounds.cu (K1), with the
+// SE-mixture Gram build (K1, K6, K7, K8) and the log-posterior and
+// first-acceptance scan (K1, K7) that come before and after it. K1's
+// single-tile path (n <= 128) has its own register-resident core in
+// csrc/mh_rounds.cu, on the same arithmetic.
 //
 // K symmetric n x n matrices, each stored as its packed upper triangle
 // (row i holds columns i..n-1 and starts at rowbase(i, n)), with the two
@@ -49,7 +51,7 @@ __device__ __forceinline__ size_t rowbase(int i, int n) {
 
 // K packed n x n triangles plus five K x n vectors (RY, RO, WY, WO, DINV);
 // ops/chol_smallk.py allocates the same number of elements
-inline size_t workspace_elems(int n, int K) {
+__host__ __device__ inline size_t workspace_elems(int n, int K) {
   return (size_t)K * n * (n + 1) / 2 + (size_t)5 * K * n;
 }
 
@@ -193,6 +195,26 @@ __device__ void factor_quadratics(const Factors<T>& f, int n, int K) {
   }
 }
 
+// One entry (i, c) of an SE-mixture correlation, without jitter:
+//   (w1 exp(-sum_a r1_a dx_a^2) + w2 exp(-sum_a r2_a dx_a^2)) / wsum,
+// the sums accumulated axis by axis (`_se_mix_gram_plain` in
+// ops/chol_smallk.py).
+template <typename T>
+__device__ __forceinline__ T se_mix_corr(const T* __restrict__ x, int i,
+                                         int c, int d, const T* r1,
+                                         const T* r2, T w1, T w2, T wsum) {
+  using A = Ar<T>;
+  T dist1 = T(0), dist2 = T(0);
+  for (int a = 0; a < d; ++a) {
+    const T df = A::sub(x[(size_t)i * d + a], x[(size_t)c * d + a]);
+    const T d2 = A::mul(df, df);
+    dist1 = A::add(dist1, A::mul(d2, r1[a]));
+    dist2 = A::add(dist2, A::mul(d2, r2[a]));
+  }
+  return A::div(A::add(A::mul(w1, A::exp_(-dist1)),
+                       A::mul(w2, A::exp_(-dist2))), wsum);
+}
+
 // The K SE-mixture correlations built from x (n, d) into the packed upper
 // triangles of f.M, with the right-hand sides y and 1 behind them:
 //   R = (w1 exp(-sum_a r1_a dx_a^2) + w2 exp(-sum_a r2_a dx_a^2)) / wsum
@@ -221,15 +243,7 @@ __device__ void build_se_mix_grams(const Factors<T>& f,
     const int k = row / n, i = row - k * n;
     T* Mi = f.M + (size_t)k * nn + rowbase(i, n);
     for (int c = i + lane; c < n; c += 32) {
-      T dist1 = T(0), dist2 = T(0);
-      for (int a = 0; a < d; ++a) {
-        const T df = A::sub(x[(size_t)i * d + a], x[(size_t)c * d + a]);
-        const T d2 = A::mul(df, df);
-        dist1 = A::add(dist1, A::mul(d2, r1[k][a]));
-        dist2 = A::add(dist2, A::mul(d2, r2[k][a]));
-      }
-      T v = A::div(A::add(A::mul(w1[k], A::exp_(-dist1)),
-                          A::mul(w2[k], A::exp_(-dist2))), wsum[k]);
+      T v = se_mix_corr<T>(x, i, c, d, r1[k], r2[k], w1[k], w2[k], wsum[k]);
       if (scale) v = A::add(A::mul(scale[k], v), shift[k]);
       if (c == i && jitter != T(0)) v = A::add(v, jitter);
       Mi[c] = v;
@@ -241,14 +255,26 @@ __device__ void build_se_mix_grams(const Factors<T>& f,
   }
 }
 
-// Each candidate's log-posterior from the quadratics `factor_quadratics`
-// left in f, quad = qyy - qoy^2 / qoo, beta = qoy / qoo,
-//   val_k = -0.5 (n log 2pi + logdet_k + n log_scale_k
-//                 + quad_k e^-log_scale_k) + extra_k,
-// and the first k with (val_k - lpv) > log_u[k]; a NaN log-posterior
-// compares false and so rejects. Returns that k and sets val_sel and
-// beta_sel to its val and beta, or returns -1 and leaves them as they were.
-// One thread calls it.
+// A candidate's log-posterior from its logdet and quadratics,
+// quad = qyy - qoy^2 / qoo, beta = qoy / qoo,
+//   val = -0.5 (n log 2pi + logdet + n log_scale
+//               + quad e^-log_scale) + extra.
+template <typename T>
+__device__ __forceinline__ T logpost_of(T ld, T qyy, T qoy, T qoo, T extra,
+                                        T ls, int n, T n_log2pi, T& beta) {
+  using A = Ar<T>;
+  beta = A::div(qoy, qoo);
+  const T quad = A::sub(qyy, A::div(A::mul(qoy, qoy), qoo));
+  const T inner = A::add(A::add(A::add(n_log2pi, ld), A::mul((T)n, ls)),
+                         A::mul(quad, A::exp_(-ls)));
+  return A::add(A::mul(T(-0.5), inner), extra);
+}
+
+// Each candidate's log-posterior (`logpost_of`) from the quadratics
+// `factor_quadratics` left in f, and the first k with
+// (val_k - lpv) > log_u[k]; a NaN log-posterior compares false and so
+// rejects. Returns that k and sets val_sel and beta_sel to its val and
+// beta, or returns -1 and leaves them as they were. One thread calls it.
 template <typename T>
 __device__ int logpost_first_acceptance(const Factors<T>& f, const T* extra,
                                         const T* log_scale, const T* log_u,
@@ -256,14 +282,10 @@ __device__ int logpost_first_acceptance(const Factors<T>& f, const T* extra,
                                         T& val_sel, T& beta_sel) {
   using A = Ar<T>;
   for (int k = 0; k < K; ++k) {
-    const T qoo = f.s_qoo[k], qoy = f.s_qoy[k];
-    const T beta = A::div(qoy, qoo);
-    const T quad = A::sub(f.s_qyy[k], A::div(A::mul(qoy, qoy), qoo));
-    const T ls = log_scale[k];
-    const T inner = A::add(
-        A::add(A::add(n_log2pi, f.s_ld[k]), A::mul((T)n, ls)),
-        A::mul(quad, A::exp_(-ls)));
-    const T val = A::add(A::mul(T(-0.5), inner), extra[k]);
+    T beta;
+    const T val = logpost_of<T>(f.s_ld[k], f.s_qyy[k], f.s_qoy[k],
+                                f.s_qoo[k], extra[k], log_scale[k], n,
+                                n_log2pi, beta);
     if (A::sub(val, lpv) > log_u[k]) {
       val_sel = val;
       beta_sel = beta;

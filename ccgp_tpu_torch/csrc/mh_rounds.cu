@@ -1,72 +1,97 @@
 // mh_rounds: R whole speculative Metropolis rounds of the SE-mixture
-// combined-GP sampler in ONE launch.
+// combined-GP sampler in ONE launch of one thread-block cluster.
 //
 // Replaces the Pallas kernel `fused_mix_mh_rounds` (body
 // `_make_mh_rounds_kernel`, ccgp_tpu/ops/pallas_chol_smallk.py:1187-1492)
 // with both of its factorization cores: the single-tile
 // `_chol_quad_core_shrink` (n <= 128) and the multi-tile blocked-Schur
-// `_chol_quad_core_multitile` (128 < n <= 1024). On the TPU the matrix
-// lives in VMEM and the core is chosen by tile count; here one loop covers
-// the whole dispatch envelope (n <= 1024, K <= 16, K * tiles^2 <= 256).
+// `_chol_quad_core_multitile` (128 < n <= 1024), over the whole dispatch
+// envelope (n <= 1024, K <= 16, K * tiles^2 <= 256).
 //
 // Per round r, for the K candidates z + delta[r, k]:
 //   1. the candidate model (unconstrained -> constrained transform,
 //      log-Jacobian, priors; `CandModel`), one thread per candidate;
 //   2. the SE-mixture Gram from x directly,
 //        R = (p^2 exp(-sum_a r1_a dx_a^2) + (1-p)^2 exp(-sum_a r2_a dx_a^2))
-//            / (p^2 + (1-p)^2)  (+ jitter on the diagonal),
-//      stored as its upper triangle (`build_se_mix_grams`);
-//   3. a right-looking Cholesky with the forward solve of [y, 1] fused in
-//      (`factor_quadratics`):
-//      pivot j reads d_j = M[j][j], dinv = rsqrt(d_j), and downdates
-//      M[i][c] -= (M[j][i] dinv)(M[j][c] dinv) for j < i <= c; the
-//      solve updates ry[i] -= (M[j][i] dinv)(ry[j] dinv). One
-//      __syncthreads() per pivot;
-//   4. logdet and the quadratics qyy, qoy, qoo (accumulated pivot by
-//      pivot), beta = qoy / qoo and the log-posterior;
+//            / (p^2 + (1-p)^2)  (+ jitter on the diagonal)
+//      (`se_mix_corr`), its upper triangle;
+//   3. a right-looking Cholesky with the forward solve of [y, 1] fused in:
+//      pivot j reads d_j = M[j][j], dinv = rsqrt(d_j), the scaled row
+//      L_j[c] = M[j][c] dinv, and downdates M[i][c] -= L_j[i] L_j[c] for
+//      j < i <= c and ry[i] -= L_j[i] (ry[j] dinv);
+//   4. logdet and the quadratics qyy, qoy, qoo, beta = qoy / qoo and the
+//      log-posterior (`logpost_of`);
 //   5. the first-acceptance scan: (val_k - lp_val) > log_u[r, k]; a NaN
-//      log-posterior compares false and so rejects
-//      (`logpost_first_acceptance`);
-//   steps 2-5 are the device functions of csrc/chol_core.cuh, shared with
-//   the K5-K7 kernels of csrc/chol_smallk.cu;
+//      log-posterior (an indefinite candidate) compares false and so
+//      rejects;
 //   6. one rec row [z | beta | logpost], one info row [acc, consumed],
 //      and, with the stash on, the accepted candidate's row-scaled factor
 //      rows (row j: L[i][j] at column i >= j), L^-1 y and L^-1 1.
 //
 // What bounds it on the card: latency, not FLOPs or bytes. The chain is
-// sequential across rounds and a factorization is sequential across its
-// n pivots, each ending in a block barrier; at the bench shape (n = 100,
-// K = 4) one pivot's downdate is at most ~20k multiply-subtracts. The
-// design is therefore ONE thread block of 1024 threads per launch that
-// loops over all R rounds and carries the chain state (z, lp_val,
-// lp_beta) in shared memory: no per-round launch, no host round trip.
-// In a pivot step a warp owns a matrix row at a time, so the pivot row
-// and the updated row are read along contiguous addresses, and each lane
-// issues all of its loads before its stores, so that a row's loads are in
-// flight together. The K matrices are stored as packed upper triangles
-// (K n(n+1)/2 values) with the right-hand sides behind them, in shared
-// memory whenever they fit beside the kernel's static arrays (89 KB at
-// the bench shape in f32, 178 KB in f64) and otherwise in a global
-// workspace the wrapper allocates (up to 17 MB at the envelope's edge in
-// f64, held in the 50 MB L2). One block uses 1 of the card's 132 SMs.
-// Measured on an NVIDIA H100 80GB HBM3 (700 W power limit) at the bench
-// shape in f32: ~390 us per round, which fits ~2.3 us per pivot step plus
-// a K n^3 term. The per-step part is instruction issue and the barrier on
-// that one SM: moving the workspace from L2 to shared memory saved ~5%,
-// loading before storing ~40%. Using more SMs (a cluster of K blocks,
-// warp-level pivots) is later work.
+// sequential across rounds and a factorization across its n pivots; at the
+// bench shape (n = 100, K = 4) a pivot's downdate is at most ~5k
+// multiply-subtracts per candidate. So the design spreads the candidates
+// over SMs and shortens each pivot step:
+//   - ONE cluster of C = min(K, 8) thread blocks per launch (8 is the
+//     portable cluster size). Block `rank` carries the candidates
+//     k = rank, rank + C, ... in k order: at K = 4 each of 4 SMs factors
+//     one candidate, at K = 16 each of 8 SMs two. Every block keeps its own
+//     copy of the chain state (z, lp_val, lp_beta) in shared memory and
+//     loops over all R rounds: no per-round launch, no host round trip.
+//   - Each round every block publishes (val, beta) of its candidates in its
+//     shared memory, double-buffered by round parity, and the cluster meets
+//     at ONE barrier (release / acquire). Then every block reads all K
+//     pairs through distributed shared memory and runs the same scan in k
+//     order on the same numbers, so all blocks select the same candidate
+//     with no second barrier. Rank 0 writes rec and info; the block that
+//     owns the selected candidate writes the stash. A block writes a parity
+//     buffer again only after the next round's barrier, which every block
+//     reaches after reading it; a last cluster barrier keeps every block's
+//     shared memory alive until the last reads are done.
+//   - n <= 128, the single-tile core (`factor_tiles`): the augmented
+//     matrix [R | y | 1] is built straight into registers and stays there,
+//     one 4 x 4 tile of its upper triangle per thread (350 tiles at
+//     n = 100, 560 at 128), so the forward solve is the same downdate on
+//     columns n and n + 1. A pivot step is two 16-byte loads (L_j at the
+//     tile's rows and columns), 16 multiply-subtracts, and, in the tiles
+//     of row j + 1, its scaling and store: no shuffle, no integer
+//     division, and the trailing matrix never goes through shared memory.
+//     There is no block barrier per pivot: the tiles of row j + 1 arrive
+//     on an mbarrier of that row, and a tile waits only for the rows it
+//     applies. logdet and the quadratics are summed after the loop by one
+//     thread in pivot order. The scaled rows stay in shared memory, and
+//     they are the stash rows.
+//   - 128 < n <= 1024, the multi-tile core: `factor_quadratics` of
+//     csrc/chol_core.cuh on the block's own candidates, with 1024 threads,
+//     its workspace in shared memory when it fits beside the static arrays
+//     and otherwise in the wrapper's global workspace, one slice per block.
+// Block size: f32 runs 1024 threads, f64 512 where its tiles fit (at 1024
+// a thread has 64 registers, fewer than an f64 tile needs); `reg_threads`,
+// chosen by the sweep `chip_smoke.k1_block_sizes`, which builds this file
+// once per block size with -DCCGP_K1_THREADS=<size> (PERF.md section 6).
 //
 // Arithmetic: every add, multiply and divide is an explicitly rounded
 // intrinsic, so no multiply-add is contracted, and the operations run in
-// the order of the plain PyTorch version (`fused_mix_mh_rounds_plain` in
-// ops/chol_smallk.py). exp / log / log1p / rsqrt are the CUDA math
-// library's, as PyTorch's elementwise kernels use.
+// the order of the plain PyTorch version (`fused_mix_mh_rounds_plain` and
+// `_factor_plain` in ops/chol_smallk.py): L_j[i] = M[j][i] dinv,
+// M[i][c] -= L_j[i] L_j[c], ry[i] -= L_j[i] (ry[j] dinv), each entry's
+// subtractions in ascending j, and logdet and the quadratics summed in
+// pivot order. exp / log / log1p / rsqrt are the CUDA math library's, as
+// PyTorch's elementwise kernels use.
 
+#include <cooperative_groups.h>
 #include <stdint.h>
 
 #include "chol_core.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
+
+constexpr int MAX_CLUSTER = 8;                  // portable cluster size
+constexpr int MAX_KB = MAX_K / MAX_CLUSTER;     // candidates per block
+constexpr int TILE = 128;                       // single-tile core: n <= TILE
 
 // must match ops/chol_smallk.py CandModel
 struct CandModel {
@@ -174,112 +199,452 @@ __device__ void cand_model(const CandModel& m, const T* z, const T* dl, T s2,
   log_scale = A::log_(A::mul(s, s2));
 }
 
-template <typename T, bool SMEM>
-__global__ void __launch_bounds__(NT)
-mh_rounds_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                 const T* __restrict__ z0, const T* __restrict__ st,
-                 const T* __restrict__ deltas, const T* __restrict__ log_u,
-                 T* __restrict__ rec, int* __restrict__ info,
-                 T* __restrict__ stash, T* __restrict__ ws,
-                 const CandModel model, int n, int d, int dim, int R, int K,
-                 T jitter, T n_log2pi) {
+// mbarriers in shared memory (CTA scope), by their shared-window address:
+// an arrival releases the arriving thread's earlier stores, a completed
+// wait acquires them.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(bar) : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
+// The single-tile core factors the AUGMENTED matrix [R | y | 1]: its
+// forward solve of [y, 1] is the same downdate on columns n and n + 1,
+// ry[i] -= L_j[i] (ry[j] dinv) being M[i][n] -= L_j[i] L_j[n]. Thread t
+// holds one TQ x TQ tile of the augmented upper triangle in registers:
+// row tile a (rows TQ a ..) by column tile b >= a (columns TQ b ..), t
+// counting the tiles row tile by row tile. The scaled rows go to shared
+// memory, row j holding columns TQ floor(j / TQ) .. TQ ntc - 1 (ntc column
+// tiles), so that each tile's TQ columns are one aligned vector load.
+constexpr int TQ = 4;
+
+__host__ __device__ inline int col_tiles(int n) {
+  return (n + 2 + TQ - 1) / TQ;
+}
+
+__host__ __device__ inline int row_tiles(int n) { return (n + TQ - 1) / TQ; }
+
+// tiles of the augmented upper triangle: row tile a has ntc - a of them
+__host__ __device__ inline int reg_tiles(int n) {
+  const int ntr = row_tiles(n), ntc = col_tiles(n);
+  return ntr * ntc - ntr * (ntr - 1) / 2;
+}
+
+// offset of row j's first stored column, TQ floor(j / TQ), in the rows of
+// one candidate; aug_row_off(n, .) is their size (a multiple of TQ)
+__host__ __device__ inline int aug_row_off(int j, int n) {
+  const int ncp = TQ * col_tiles(n), m = j / TQ, t = j % TQ;
+  return j * ncp - TQ * (TQ * (m * (m - 1) / 2) + t * m);
+}
+
+// (j, c) of one candidate's scaled rows L, c >= TQ floor(j / TQ)
+template <typename T>
+__device__ __forceinline__ T* aug_at(T* L, int j, int c, int n) {
+  return L + aug_row_off(j, n) + (c - TQ * (j / TQ));
+}
+
+// TQ consecutive values from an aligned address in shared memory
+__device__ __forceinline__ void load_tq(const float* p, float (&v)[TQ]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+
+__device__ __forceinline__ void load_tq(const double* p, double (&v)[TQ]) {
+  const double2 q0 = reinterpret_cast<const double2*>(p)[0];
+  const double2 q1 = reinterpret_cast<const double2*>(p)[1];
+  v[0] = q0.x; v[1] = q0.y; v[2] = q1.x; v[3] = q1.y;
+}
+
+// Pivot j's step, by each tile that holds part of row j (downdated by
+// every earlier pivot): `row` its TQ columns TQ b .., dj the diagonal d_j
+// (every tile of the row keeps it). dinv = rsqrt(d_j) and the scaled
+// entries L_j[c] = M[j][c] dinv (j <= c <= n + 1) into the rows; the
+// diagonal tile stores d_j in D[j]; then the thread arrives on `bar`,
+// which completes when every tile of row j has (ntc - floor(j / TQ)
+// arrivals) and so releases the row to the block.
+template <typename T>
+__device__ __forceinline__ void publish_pivot(T* L, T* D, unsigned bar,
+                                              int j, int b, bool diag, int n,
+                                              const T (&row)[TQ], T dj) {
+  using A = Ar<T>;
+  const T dinv = A::rsqrt_(dj);
+  T* Lj = aug_at(L, j, TQ * b, n);
+#pragma unroll
+  for (int p = 0; p < TQ; ++p) {
+    const int c = TQ * b + p;
+    if (c >= j && c <= n + 1) Lj[p] = A::mul(row[p], dinv);
+  }
+  if (diag) D[j] = dj;
+  mbar_arrive(bar);
+}
+
+// The single-tile core (n <= TILE): one candidate's augmented Gram built
+// into the tiles' registers and factored there (see the header). Leaves
+// the scaled rows at L (aug_row_off(n, n) values) and the pivots d_j at D.
+// Every thread of the block calls it once r1, r2, w1, w2 and wsum are
+// visible; the threads beyond reg_tiles(n) only meet the block barrier at
+// its end.
+//
+// There is no block barrier per pivot: the tiles that publish row j arrive
+// on bar[j], and a tile waits on bar[j] (phase `parity`) only before it
+// applies pivot j, so a tile runs ahead as far as the rows it needs allow;
+// it stops after the pivot below its last row. Each row is written once
+// per factorization, and the block barrier at the end keeps the next
+// factorization from writing a row that is still being read.
+//
+// A tile updates all of its entries without a test: an entry left of the
+// diagonal (c < r), of a finished row (r <= j) or beyond n + 1 takes junk
+// that no one reads (a row is published from its columns r..n+1 before it
+// is finished, and L_j is read at columns up to n + 1 only).
+template <typename T>
+__device__ __forceinline__ void factor_tiles(
+    T* L, T* D, unsigned bar0, unsigned parity, int ta, int tb,
+    const T* __restrict__ x, const T* __restrict__ y, const T* r1,
+    const T* r2, T w1, T w2, T wsum, int n, int d, T jitter) {
+  using A = Ar<T>;
+  if (ta >= 0) {
+    T m[TQ][TQ];   // m[q][p] = M[TQ ta + q][TQ tb + p]
+    // every tile keeps its rows' diagonals, downdated as the diagonal
+    // tile's entries are (li li, li == L_j[r] bit for bit)
+    T dg[TQ];
+#pragma unroll
+    for (int q = 0; q < TQ; ++q) {
+      const int r = TQ * ta + q;
+#pragma unroll
+      for (int p = 0; p < TQ; ++p) {
+        const int c = TQ * tb + p;
+        T v = T(0);
+        if (r < n && c >= r && c < n) {
+          v = se_mix_corr<T>(x, r, c, d, r1, r2, w1, w2, wsum);
+          if (c == r && jitter != T(0)) v = A::add(v, jitter);
+        } else if (r < n && c == n) {
+          v = y[r];
+        } else if (r < n && c == n + 1) {
+          v = T(1);
+        }
+        m[q][p] = v;
+      }
+      dg[q] = T(0);
+      if (r < n) {
+        dg[q] = se_mix_corr<T>(x, r, r, d, r1, r2, w1, w2, wsum);
+        if (jitter != T(0)) dg[q] = A::add(dg[q], jitter);
+      }
+    }
+    const bool diag = ta == tb;
+    if (ta == 0) publish_pivot<T>(L, D, bar0, 0, tb, diag, n, m[0], dg[0]);
+    // the tile applies the pivots below its last row
+    const int last = min(TQ * ta + TQ - 1, n - 1);
+    for (int j = 0; j < last; ++j) {
+      mbar_wait(bar0 + 8 * j, parity);
+      T li[TQ], lc[TQ];
+      load_tq(aug_at(L, j, TQ * ta, n), li);
+      load_tq(aug_at(L, j, TQ * tb, n), lc);
+#pragma unroll
+      for (int q = 0; q < TQ; ++q) {
+#pragma unroll
+        for (int p = 0; p < TQ; ++p)
+          m[q][p] = A::sub(m[q][p], A::mul(li[q], lc[p]));
+        dg[q] = A::sub(dg[q], A::mul(li[q], li[q]));
+      }
+#pragma unroll
+      for (int q = 0; q < TQ; ++q)
+        if (TQ * ta + q == j + 1)
+          publish_pivot<T>(L, D, bar0 + 8 * (j + 1), j + 1, tb, diag, n,
+                           m[q], dg[q]);
+    }
+  }
+  __syncthreads();
+}
+
+enum { CORE_REG = 0, CORE_SMEM, CORE_GLOBAL };
+
+template <typename T>
+struct RoundsArgs {
+  const T* x;
+  const T* y;
+  const T* z0;
+  const T* st;        // lp_val, lp_beta, sigma2
+  const T* deltas;
+  const T* log_u;
+  T* rec;
+  int* info;
+  T* stash;           // null: no stash
+  T* ws;              // C x workspace_elems(n, ceil(K / C)) (CORE_GLOBAL)
+  CandModel model;
+  int n, d, dim, R, K;
+  T jitter, n_log2pi;
+};
+
+template <typename T, int NTB, int CORE>
+__global__ void __launch_bounds__(NTB) mh_rounds_kernel(const RoundsArgs<T> a) {
+  static_assert(CORE == CORE_REG || NTB == NT,
+                "factor_quadratics runs on NT threads");
+  constexpr bool REG = CORE == CORE_REG;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   using A = Ar<T>;
-  // candidate k is s_z + deltas[r, k], recomputed where it is read (a
-  // K x MAX_DIM copy would not fit the 48 KB of static shared memory in f64)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int n = a.n, dim = a.dim, K = a.K;
+  const int kb = (K - rank + C - 1) / C;   // this block's candidates
+  const int kbm = (K + C - 1) / C;         // the most a block carries
   __shared__ T s_z[MAX_DIM];
-  __shared__ T s_r1[MAX_K][MAX_D];
-  __shared__ T s_r2[MAX_K][MAX_D];
-  __shared__ T s_w1[MAX_K], s_w2[MAX_K], s_ws[MAX_K];
-  __shared__ T s_extra[MAX_K], s_logscale[MAX_K];
+  __shared__ T s_r1[MAX_KB][MAX_D];
+  __shared__ T s_r2[MAX_KB][MAX_D];
+  __shared__ T s_w1[MAX_KB], s_w2[MAX_KB], s_ws[MAX_KB];
+  __shared__ T s_extra[MAX_KB], s_logscale[MAX_KB];
+  // factor_quadratics' accumulators and pivot rsqrt (indexed up to MAX_K)
   __shared__ T s_ld[MAX_K], s_qyy[MAX_K], s_qoy[MAX_K], s_qoo[MAX_K];
-  __shared__ T s_dinv[2 * MAX_K];   // pivot rsqrt, double-buffered by pivot
+  __shared__ T s_dinv[2 * MAX_K];
+  // (val, beta) of this block's candidates by round parity, read by every
+  // block of the cluster
+  __shared__ T s_pub[2][MAX_KB][2];
+  __shared__ T s_val[MAX_K], s_beta[MAX_K];   // all K, gathered
   __shared__ T s_lpv, s_lpb;
   __shared__ int s_sel;
+  // the single-tile core's row-published barriers, one per pivot
+  __shared__ __align__(8) uint64_t s_bar[TILE];
+  unsigned gen = 0;   // factorizations so far: the barriers' phase
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const size_t nn = (size_t)n * (n + 1) / 2;
-  // K packed upper triangles, the right-hand sides (downdated), L^-1 y,
-  // L^-1 1 and the rsqrt of each pivot
-  const Factors<T> f(SMEM ? (T*)smem_raw : ws, n, K, s_ld, s_qyy, s_qoy,
-                     s_qoo, s_dinv);
-  T* M = f.M;
-  const T s2 = st[2];
+  // the multi-tile cores' workspace: kbm packed triangles, then RY, RO, WY,
+  // WO, DINV (kbm x n each)
+  const Factors<T> f(CORE == CORE_GLOBAL
+                         ? a.ws + (size_t)rank * workspace_elems(n, kbm)
+                         : (T*)smem_raw,
+                     n, kbm, s_ld, s_qyy, s_qoy, s_qoo, s_dinv);
+  // the single-tile core's: kbm sets of scaled augmented rows, then kbm x n
+  // pivots, and this thread's tile (ta = -1: none)
+  const int naug = aug_row_off(n, n);
+  T* const Laug = (T*)smem_raw;
+  T* const Dpiv = Laug + kbm * naug;
+  int ta = -1, tb = 0;
+  if (REG && tid < reg_tiles(n)) {
+    const int ntc = col_tiles(n);
+    int first = 0;   // the tiles of the row tiles before ta
+    for (ta = 0; first + ntc - ta <= tid; ++ta) first += ntc - ta;
+    tb = ta + tid - first;
+  }
+  const T s2 = a.st[2];
 
-  for (int c = tid; c < dim; c += NT) s_z[c] = z0[c];
+  for (int c = tid; c < dim; c += NTB) s_z[c] = a.z0[c];
+  // bar[j] completes when every tile of row j has published its part
+  if (REG && tid < n)
+    mbar_init(smem_addr(&s_bar[tid]), col_tiles(n) - tid / TQ);
   if (tid == 0) {
-    s_lpv = st[0];
-    s_lpb = st[1];
+    s_lpv = a.st[0];
+    s_lpb = a.st[1];
   }
   __syncthreads();
 
-  for (int r = 0; r < R; ++r) {
-    // 1. candidates and their model terms
-    if (tid < K) {
-      const int k = tid;
-      const T* dl = deltas + ((size_t)r * K + k) * dim;
+  for (int r = 0; r < a.R; ++r) {
+    // 1. this block's candidates and their model terms
+    if (tid < kb) {
+      const int k = rank + tid * C;
+      const T* dl = a.deltas + ((size_t)r * K + k) * dim;
       T p, extra, ls;
-      cand_model<T>(model, s_z, dl, s2, s_r1[k], s_r2[k], p, extra, ls);
+      cand_model<T>(a.model, s_z, dl, s2, s_r1[tid], s_r2[tid], p, extra, ls);
       const T q = A::sub(T(1), p);
-      s_w1[k] = A::mul(p, p);
-      s_w2[k] = A::mul(q, q);
-      s_ws[k] = A::add(s_w1[k], s_w2[k]);
-      s_extra[k] = extra;
-      s_logscale[k] = ls;
+      s_w1[tid] = A::mul(p, p);
+      s_w2[tid] = A::mul(q, q);
+      s_ws[tid] = A::add(s_w1[tid], s_w2[tid]);
+      s_extra[tid] = extra;
+      s_logscale[tid] = ls;
     }
     __syncthreads();
 
-    // 2. the K Grams (upper triangles) and right-hand sides
-    build_se_mix_grams<T>(f, x, y, s_r1, s_r2, s_w1, s_w2, s_ws, n, d, K,
-                          jitter);
-    __syncthreads();
+    // 2.-3. the Grams, their factorizations and forward solves
+    if constexpr (REG) {
+      for (int lk = 0; lk < kb; ++lk, ++gen)
+        factor_tiles<T>(Laug + lk * naug, Dpiv + lk * n, smem_addr(s_bar),
+                        gen & 1, ta, tb, a.x, a.y, s_r1[lk], s_r2[lk],
+                        s_w1[lk], s_w2[lk], s_ws[lk], n, a.d, a.jitter);
+      for (int e = tid; e < kb * n; e += NTB) Dpiv[e] = A::log_(Dpiv[e]);
+      __syncthreads();
+    } else {
+      build_se_mix_grams<T>(f, a.x, a.y, s_r1, s_r2, s_w1, s_w2, s_ws, n,
+                            a.d, kb, a.jitter);
+      __syncthreads();
+      factor_quadratics<T>(f, n, kb);
+    }
 
-    // 3.-4. right-looking factorization, forward solve, quadratics
-    factor_quadratics<T>(f, n, K);
-
-    // 5. log-posteriors and the first-acceptance scan
-    if (tid == 0) {
-      T val_sel = T(0), beta_sel = T(0);
-      const int sel = logpost_first_acceptance<T>(
-          f, s_extra, s_logscale, log_u + (size_t)r * K, s_lpv, n, K,
-          n_log2pi, val_sel, beta_sel);
-      if (sel >= 0) {
-        const T* dl = deltas + ((size_t)r * K + sel) * dim;
-        for (int c = 0; c < dim; ++c) s_z[c] = A::add(s_z[c], dl[c]);
-        s_lpv = val_sel;
-        s_lpb = beta_sel;
+    // 4. log-posteriors, published to the cluster
+    const int par = r & 1;
+    if (tid < kb) {
+      T ld, qyy, qoy, qoo;
+      if constexpr (REG) {
+        // logdet and the quadratics in pivot order from log d_j, L^-1 y
+        // and L^-1 1 (columns n and n + 1 of the augmented rows)
+        ld = qyy = qoy = qoo = T(0);
+        T* const La = Laug + tid * naug;
+        const T* lg = Dpiv + tid * n;
+#pragma unroll 4
+        for (int j = 0; j < n; ++j) {
+          const T* Lr = aug_at(La, j, n, n);
+          const T wy = Lr[0], wo = Lr[1];
+          ld = A::add(ld, lg[j]);
+          qyy = A::add(qyy, A::mul(wy, wy));
+          qoy = A::add(qoy, A::mul(wy, wo));
+          qoo = A::add(qoo, A::mul(wo, wo));
+        }
+      } else {
+        ld = s_ld[tid];
+        qyy = s_qyy[tid];
+        qoy = s_qoy[tid];
+        qoo = s_qoo[tid];
       }
-      T* rr = rec + (size_t)r * (dim + 2);
-      for (int c = 0; c < dim; ++c) rr[c] = s_z[c];
-      rr[dim] = s_lpb;
-      rr[dim + 1] = s_lpv;
-      info[2 * r] = sel >= 0 ? 1 : 0;
-      info[2 * r + 1] = sel >= 0 ? sel + 1 : K;
+      T beta;
+      s_pub[par][tid][0] = logpost_of<T>(ld, qyy, qoy, qoo, s_extra[tid],
+                                         s_logscale[tid], n, a.n_log2pi,
+                                         beta);
+      s_pub[par][tid][1] = beta;
+    }
+    cluster.sync();
+
+    // 5. every block gathers all K and runs the same first-acceptance scan
+    if (tid < K) {
+      const T* pub = cluster.map_shared_rank(&s_pub[par][0][0], tid % C);
+      s_val[tid] = pub[2 * (tid / C)];
+      s_beta[tid] = pub[2 * (tid / C) + 1];
+    }
+    __syncthreads();
+    if (tid == 0) {
+      int sel = -1;
+      for (int k = 0; k < K; ++k) {
+        if (A::sub(s_val[k], s_lpv) > a.log_u[(size_t)r * K + k]) {
+          sel = k;
+          break;
+        }
+      }
+      if (sel >= 0) {
+        s_lpv = s_val[sel];
+        s_lpb = s_beta[sel];
+      }
       s_sel = sel;
+      if (rank == 0) {
+        T* rr = a.rec + (size_t)r * (dim + 2);
+        rr[dim] = s_lpb;
+        rr[dim + 1] = s_lpv;
+        a.info[2 * r] = sel >= 0 ? 1 : 0;
+        a.info[2 * r + 1] = sel >= 0 ? sel + 1 : K;
+      }
     }
     __syncthreads();
 
-    // 6. the accepted candidate's factors
+    // 6. the state carry, the record and the accepted candidate's factors
     const int sel = s_sel;
-    if (stash != nullptr && sel >= 0) {
-      T* out = stash + (size_t)r * (n + 2) * n;
-      const T* Ms = M + (size_t)sel * nn;
-      for (int row = warp; row < n + 2; row += WARPS) {
+    if (sel >= 0) {
+      const T* dl = a.deltas + ((size_t)r * K + sel) * dim;
+      for (int c = tid; c < dim; c += NTB) s_z[c] = A::add(s_z[c], dl[c]);
+    }
+    if (rank == 0)
+      for (int c = tid; c < dim; c += NTB)
+        a.rec[(size_t)r * (dim + 2) + c] = s_z[c];
+    if (a.stash != nullptr && sel >= 0 && sel % C == rank) {
+      const int lk = sel / C;
+      T* out = a.stash + (size_t)r * (n + 2) * n;
+      for (int row = warp; row < n + 2; row += NTB / 32) {
         T* o = out + (size_t)row * n;
-        if (row < n) {
-          const T dinv = f.DINV[(size_t)sel * n + row];
+        if constexpr (REG) {
+          // row j < n: L_j[c] (c >= j); rows n, n + 1: column n, n + 1 of
+          // every augmented row
+          T* const La = Laug + lk * naug;
+          if (row < n) {
+            for (int c = lane; c < n; c += 32)
+              o[c] = c >= row ? *aug_at(La, row, c, n) : T(0);
+          } else {
+            for (int c = lane; c < n; c += 32) o[c] = *aug_at(La, c, row, n);
+          }
+        } else if (row < n) {
+          const T* Mr = f.M + (size_t)lk * nn + rowbase(row, n);
+          const T dinv = f.DINV[(size_t)lk * n + row];
           for (int c = lane; c < n; c += 32)
-            o[c] = c >= row ? A::mul(Ms[rowbase(row, n) + c], dinv) : T(0);
+            o[c] = c >= row ? A::mul(Mr[c], dinv) : T(0);
         } else {
-          const T* v = (row == n ? f.WY : f.WO) + (size_t)sel * n;
+          const T* v = (row == n ? f.WY : f.WO) + (size_t)lk * n;
           for (int c = lane; c < n; c += 32) o[c] = v[c];
         }
       }
     }
     __syncthreads();
   }
+  // no block leaves while another may still read its s_pub
+  cluster.sync();
+}
+
+// Launch the kernel as one cluster of C blocks with `smem` bytes of dynamic
+// shared memory, after checking that the card can place such a cluster.
+// Returns the first error (the caller clears it).
+template <typename T, int NTB, int CORE>
+cudaError_t launch_cluster(const RoundsArgs<T>& a, int C, size_t smem,
+                           cudaStream_t s) {
+  void (*kern)(RoundsArgs<T>) = mh_rounds_kernel<T, NTB, CORE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, 1, 1);
+  cfg.blockDim = dim3(NTB, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  return cudaLaunchKernelEx(&cfg, kern, a);
+}
+
+// The single-tile core's block size, measured on the bench shape (PERF.md
+// section 6): f32 1024 threads; f64 512 where the tiles fit (at 1024 a
+// thread has 64 registers, fewer than an f64 tile needs). 512 threads hold
+// the tiles of n <= 122, 1024 those of n <= TILE (560).
+template <typename T>
+int reg_threads(int tiles) {
+  return sizeof(T) == 4 || tiles > 512 ? 1024 : 512;
+}
+
+// The launch's layout, the one place it is decided: a cluster of
+// C = min(K, 8) blocks, each carrying at most kbm = ceil(K / C) candidates;
+// beyond one tile, a global workspace of C slices of workspace_elems(n, kbm)
+// (used when the block's slice does not fit its shared memory).
+struct Layout {
+  int C, kbm;
+  size_t ws_elems;
+};
+
+inline Layout layout(int n, int K) {
+  const int C = K < MAX_CLUSTER ? K : MAX_CLUSTER;
+  const int kbm = (K + C - 1) / C;
+  return {C, kbm, n <= TILE ? 0 : (size_t)C * workspace_elems(n, kbm)};
 }
 
 template <typename T>
@@ -289,19 +654,45 @@ int launch(const void* x, const void* y, const void* z, const void* st,
            int R, int K, double jitter, void* stream) {
   if (K < 1 || K > MAX_K || d < 1 || d > MAX_D || dim > MAX_DIM || n < 1)
     return (int)cudaErrorInvalidValue;
-  const CandModel m = *(const CandModel*)model;
-  const T n_log2pi = (T)(n * 1.8378770664093453);   // n * log(2 pi)
-  // the workspace goes to shared memory when it fits beside the static
-  // arrays (see workspace_elems for its size)
+  const RoundsArgs<T> a{(const T*)x, (const T*)y, (const T*)z, (const T*)st,
+                        (const T*)deltas, (const T*)log_u, (T*)rec,
+                        (int*)info, (T*)stash, (T*)ws,
+                        *(const CandModel*)model, n, d, dim, R, K, (T)jitter,
+                        (T)(n * 1.8378770664093453)};   // n log(2 pi)
+  const Layout lay = layout(n, K);
   cudaStream_t s = (cudaStream_t)stream;
-  return launch_smem_or_global(
-      mh_rounds_kernel<T, true>, mh_rounds_kernel<T, false>,
-      workspace_elems(n, K) * sizeof(T), [&](auto kern, size_t bytes) {
-        kern<<<1, NT, bytes, s>>>(
-            (const T*)x, (const T*)y, (const T*)z, (const T*)st,
-            (const T*)deltas, (const T*)log_u, (T*)rec, (int*)info,
-            (T*)stash, (T*)ws, m, n, d, dim, R, K, (T)jitter, n_log2pi);
-      });
+  cudaError_t err;
+  if (n <= TILE) {
+    const size_t bytes =
+        (size_t)lay.kbm * (aug_row_off(n, n) + n) * sizeof(T);
+    // one thread per tile
+#ifdef CCGP_K1_THREADS
+    // a block-size sweep's own build (chip_smoke.k1_block_sizes)
+    if (reg_tiles(n) > CCGP_K1_THREADS) return (int)cudaErrorInvalidValue;
+    err = launch_cluster<T, CCGP_K1_THREADS, CORE_REG>(a, lay.C, bytes, s);
+#else
+    err = reg_threads<T>(reg_tiles(n)) == 1024
+              ? launch_cluster<T, 1024, CORE_REG>(a, lay.C, bytes, s)
+              : launch_cluster<T, 512, CORE_REG>(a, lay.C, bytes, s);
+#endif
+  } else {
+    const size_t bytes = workspace_elems(n, lay.kbm) * sizeof(T);
+    // the workspace goes to shared memory when it fits beside the static
+    // arrays
+    cudaFuncAttributes fa;
+    err = cudaFuncGetAttributes(&fa, mh_rounds_kernel<T, NT, CORE_SMEM>);
+    if (err == cudaSuccess)
+      err = fa.sharedSizeBytes + bytes <= SMEM_PER_BLOCK
+                ? launch_cluster<T, NT, CORE_SMEM>(a, lay.C, bytes, s)
+                : ws == nullptr
+                      ? cudaErrorInvalidValue
+                      : launch_cluster<T, NT, CORE_GLOBAL>(a, lay.C, 0, s);
+  }
+  if (err != cudaSuccess) {
+    cudaGetLastError();   // a refused launch never ran: clear its error
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -324,4 +715,15 @@ extern "C" int ccgp_mh_rounds_f64(const void* x, const void* y, const void* z,
                                   double jitter, void* stream) {
   return launch<double>(x, y, z, st, deltas, log_u, rec, info, stash, ws,
                         model, n, d, dim, R, K, jitter, stream);
+}
+
+// The cluster's blocks and the elements of the global workspace (0: none)
+// that a launch for (n, K) takes, for the wrapper to size `ws` with.
+extern "C" int ccgp_mh_rounds_layout(int n, int K, int* blocks,
+                                     long long* ws_elems) {
+  if (K < 1 || K > MAX_K || n < 1) return (int)cudaErrorInvalidValue;
+  const Layout lay = layout(n, K);
+  *blocks = lay.C;
+  *ws_elems = (long long)lay.ws_elems;
+  return 0;
 }

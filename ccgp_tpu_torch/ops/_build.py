@@ -42,8 +42,12 @@ _D = ctypes.c_double
 # C entry points: name -> argtypes (restype is always int)
 _SIGNATURES = {
     "ccgp_threefry_split_chain": [_P, _P, _P, _P, _I, _P],
+    # x, y, z, st, deltas, log_u, rec, info, stash, ws, model, n, d, dim,
+    # R, K, jitter, stream
     "ccgp_mh_rounds_f32": [_P] * 11 + [_I] * 5 + [_D, _P],
     "ccgp_mh_rounds_f64": [_P] * 11 + [_I] * 5 + [_D, _P],
+    # n, K, &blocks, &ws_elems
+    "ccgp_mh_rounds_layout": [_I, _I, _P, _P],
     # grams, y, q, chol, wy, wo, B, n, factors, jitter, stream
     "ccgp_chol_lanes_f32": [_P] * 6 + [_I] * 3 + [_D, _P],
     "ccgp_chol_lanes_f64": [_P] * 6 + [_I] * 3 + [_D, _P],

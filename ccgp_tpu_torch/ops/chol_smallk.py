@@ -1,8 +1,9 @@
 """The small-K latency kernels (port of
-`ccgp_tpu/ops/pallas_chol_smallk.py`): K <= 16 matrices factored together
-by one thread block, each a right-looking Cholesky with the forward solve
-of [y, 1] fused in and logdet and the quadratics accumulated pivot by
-pivot (the core `csrc/chol_core.cuh`). Four wrappers, each with its plain
+`ccgp_tpu/ops/pallas_chol_smallk.py`): K <= 16 matrices factored in one
+launch, each a right-looking Cholesky with the forward solve of [y, 1]
+fused in and logdet and the quadratics accumulated in pivot order (the
+core `csrc/chol_core.cuh`; K1 at n <= 128 its own register-resident core
+in `csrc/mh_rounds.cu`). Four wrappers, each with its plain
 PyTorch twin (the same operations in the same order) and a launch counter:
 
   chol_quadratics_smallk       K5  {logdet, qyy, qoy, qoo} of K
@@ -24,9 +25,10 @@ built from x as sum_k r_k (x_ik - x_jk)^2, the factorization, the
 log-posterior; then the first-acceptance scan (a NaN log-posterior
 compares False and so rejects) and the state carry.
 
-On a CUDA tensor each wrapper launches its kernel, one thread block for
-all K matrices (and, for K1, all R rounds); on a CPU tensor it runs its
-twin. A non-PD matrix gives NaN quadratics, never an exception.
+On a CUDA tensor each wrapper launches its kernel: for K5-K7 one thread
+block for all K matrices; for K1 one cluster of min(K, 8) blocks for all
+R rounds, each block factoring its own candidates. On a CPU tensor it
+runs its twin. A non-PD matrix gives NaN quadratics, never an exception.
 
 The stash layout is the port's own: (R, n+2, n), row j < n holding
 L[i, j] at column i >= j (zeros below), row n L^-1 y and row n+1 L^-1 1 of
@@ -53,6 +55,17 @@ _LOG2PI = math.log(2.0 * math.pi)
 # prior codes shared with csrc/mh_rounds.cu
 PRIOR_NONE, PRIOR_INVGAMMA, PRIOR_LOGNORMAL, PRIOR_UNIFORM01, \
     PRIOR_JEFFREYS = range(5)
+
+
+def rounds_layout(n: int, k: int) -> tuple[int, int]:
+    """K1's launch for n points and K candidates as `csrc/mh_rounds.cu`
+    lays it out: (thread blocks in its cluster, min(K, 8); elements of
+    the global workspace it takes, 0 for none). Needs the kernel library."""
+    blocks, elems = ctypes.c_int(), ctypes.c_longlong()
+    _build.check(_build.library().ccgp_mh_rounds_layout(
+        n, k, ctypes.addressof(blocks), ctypes.addressof(elems)),
+        "fused_mix_mh_rounds layout")
+    return blocks.value, elems.value
 
 
 def dispatch_ok(n: int, k: int) -> bool:
@@ -314,7 +327,8 @@ def fused_mix_mh_rounds(x, y, z, lp_val, lp_beta, sigma2, deltas, log_u,
       stash     (R, n+2, n) factors of each round's accepted candidate
                 (see the module docstring), when stash=True
 
-    CUDA tensors launch `csrc/mh_rounds.cu`; CPU tensors take
+    CUDA tensors launch `csrc/mh_rounds.cu`, one cluster of min(K, 8)
+    thread blocks (`rounds_layout`); CPU tensors take
     `fused_mix_mh_rounds_plain`."""
     _check(x, y, z, deltas, log_u, model)
     if x.device.type == "cpu":
@@ -334,10 +348,11 @@ def fused_mix_mh_rounds(x, y, z, lp_val, lp_beta, sigma2, deltas, log_u,
     info = torch.empty((rr, 2), dtype=torch.int32, device=dev)
     st_out = (torch.full((rr, n + 2, n), float("nan"), dtype=dt, device=dev)
               if stash else None)
-    # K packed upper triangles + 5 K n vectors (csrc/mh_rounds.cu
-    # workspace_elems); the kernel moves it to shared memory if it fits
-    ws = torch.empty(kk * n * (n + 1) // 2 + 5 * kk * n, dtype=dt,
-                     device=dev)
+    # beyond one tile each block of the cluster factors its candidates in
+    # its own slice of this workspace when they do not fit its shared memory
+    ws_elems = rounds_layout(n, kk)[1]
+    ws = (torch.empty(ws_elems, dtype=dt, device=dev) if ws_elems > 0
+          else None)
     lib = _build.library()
     fn = (lib.ccgp_mh_rounds_f32 if dt == torch.float32
           else lib.ccgp_mh_rounds_f64)

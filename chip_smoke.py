@@ -10,10 +10,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      source, in parallel; sm_90a);
   3. the threefry key-chain kernel against its plain PyTorch version:
      integer equality;
-  4. the fused Metropolis-rounds kernel against its plain version on the
-     same inputs: equal acceptance flags and consumed counts, records
-     and decoded stash within the stated tolerances (bench shape in f32
-     and f64, a multi-tile n in f32, small n = 16 and 20 in f64);
+  4. the fused Metropolis-rounds kernel (K1, one thread-block cluster)
+     against its plain version on the same inputs: equal acceptance flags
+     and consumed counts, NaN stash rows in the same places, records and
+     decoded stash within the stated tolerances, and the count of records
+     bit-equal to the twin's (bench shape in f32 and f64, a multi-tile n
+     in f32, small n = 16 and 20 in f64; K in {1, 3, 4, 5, 8, 16} x n in
+     {14, 20, 100, 128, 129, 300} x f32 and f64 inside the envelope; an
+     indefinite candidate rejected inside its block; a p prior);
   7. the batched Cholesky kernels (quadratics K3, factors K4) against
      their plain versions: B in {128, 64, 200, 1728} x n in {100, 14,
      128}, f32 and f64, plus an indefinite and a rank-deficient batch
@@ -29,7 +33,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   5. the full-Bayes path: `fit_combined_gp` -> `predict_combined_gp` at the
      bench workload (2-D anisotropic SE x SE, tied rough rates, n = 100,
      25 x 25 lattice, speculative K = 4, n_max 5000, samp_size 1000, f32,
-     jitter 1e-3, PRNGKey(7)), accuracy- and chain-guarded; then the same
+     jitter 1e-3, PRNGKey(7)), accuracy- and chain-guarded (the chain
+     1340 / 4763 / 1844, recorded / proposals / rounds); then the same
      slice at a small f64 size on the GPU against the CPU (plain twins);
   8. the MAP path (`bench.py:92-174` composed from the port: a 24-point
      plug-in grid, a 128-point Halton cloud and a 64-point zoom through
@@ -45,7 +50,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      at the main paths' shapes (K8 at an EB row and the MAP cloud, K9 at
      the MAP cloud): device time under torch.profiler where it kept a
      record of every launch the wrapper counted, else the CUDA-event time
-     per call;
+     per call; K1's cluster size and us/round;
  12. the 1-D models at full width (n = 8, 50 points, f64, function 1 on
      the `random_lhs` design `sim_1d.run` draws from PRNGKey(0), the
      --fast MCMC budget): `sim_1d`'s Matern x Matern and
@@ -187,29 +192,47 @@ def _rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
                  / max(1.0, float(torch.max(torch.abs(b[m])))))
 
 
-def _rounds_case(n, rr, dtype, jitter, seed):
+def _rounds_case(n, rr, dtype, jitter, seed, kk=4, indefinite=False,
+                 jeffreys=False):
+    """K1's inputs on the bench model (2-D anisotropic SE x SE, tied rough
+    rates). jeffreys: a `JeffreysUnit` prior on p as well. indefinite: the
+    state sits at rough rates (e^4) and every round's candidate 0 steps to
+    smooth ones (e^-4), whose near-singular Gram the negative jitter makes
+    indefinite: a NaN log-posterior, rejected, while the rough candidates
+    stay positive definite; lp_val starts at -1e30, so every finite
+    candidate 0 would be taken."""
     from ccgp_tpu_torch.models.likelihood import cand_model_for
     from ccgp_tpu_torch.models.combination import MixtureSpec
-    from ccgp_tpu_torch.models.priors import InverseGamma, LogNormal
+    from ccgp_tpu_torch.models.priors import (InverseGamma, JeffreysUnit,
+                                              LogNormal)
     from ccgp_tpu_torch.ops import kernels
 
     spec = MixtureSpec(kernels.sqexp_family(), kernels.sqexp_family(),
                        dim=2, rough="tied", anisotropic=True)
     r = np.random.default_rng(seed)
     x = r.uniform(size=(n, 2))
-    kk, dim = 4, 4
+    dim = 4
     t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device="cuda")  # noqa: E731
     model = cand_model_for(spec, t(x), LogNormal(-1.0, 1.0),
-                           InverseGamma(3, 4))
-    args = dict(x=t(x), y=t(f2(x)), z=t([0.6, 0.4, 0.1, -0.2]),
-                lp_val=t(-1e6), lp_beta=t(0.0), sigma2=t(0.05),
-                deltas=t(0.25 * r.normal(size=(rr * kk, dim))),
+                           InverseGamma(3, 4),
+                           JeffreysUnit() if jeffreys else None)
+    z, lpv = [0.6, 0.4, 0.1, -0.2], -1e6
+    deltas = 0.25 * r.normal(size=(rr * kk, dim))
+    if indefinite:
+        z, lpv, jitter = [4.0, 4.0, 0.1, -0.2], -1e30, -0.01
+        deltas[0::kk, :2] -= 8.0
+    args = dict(x=t(x), y=t(f2(x)), z=t(z),
+                lp_val=t(lpv), lp_beta=t(0.0), sigma2=t(0.05),
+                deltas=t(deltas),
                 log_u=t(np.log(r.uniform(size=(rr, kk)))), model=model,
                 jitter=jitter, stash=True)
     return args
 
 
-def _compare_rounds(args, rtol, label):
+def _compare_rounds(args, rtol, label, indefinite=False):
+    """K1 against its twin on the same inputs: equal acc and consumed, NaN
+    stash rows in the same places, records and decoded stash within rtol.
+    Returns (max abs error, records bit-equal to the twin's)."""
     from ccgp_tpu_torch.ops import chol_smallk
     from ccgp_tpu_torch.predict.factors import decode_stash
 
@@ -220,6 +243,10 @@ def _compare_rounds(args, rtol, label):
         raise AssertionError(f"{label}: acc differs")
     if not torch.equal(got["consumed"], ref["consumed"]):
         raise AssertionError(f"{label}: consumed differs")
+    if not torch.equal(torch.isnan(got["stash"]), torch.isnan(ref["stash"])):
+        raise AssertionError(f"{label}: NaN stash entries differ")
+    if indefinite and not bool((ref["consumed"] >= 2).all()):
+        raise AssertionError(f"{label}: the indefinite candidate was taken")
     n = args["x"].shape[0]
     acc = ref["acc"]
     if int(acc.sum()) < 1:
@@ -231,30 +258,68 @@ def _compare_rounds(args, rtol, label):
     abs_err = max(float(torch.max(torch.abs(got["rec"] - ref["rec"]))),
                   *(float(torch.max(torch.abs(a - b)))
                     for a, b in zip(dg, dr)))
+    bits = int((got["rec"] == ref["rec"]).all(1).sum())
     if not (err_rec <= rtol and err_stash <= rtol):
         raise AssertionError(f"{label}: rec err {err_rec:.3g}, stash err "
                              f"{err_stash:.3g} > {rtol:g}")
     log(f"[4] {label}: acc/consumed equal ({int(acc.sum())}/"
         f"{acc.numel()} accepted), rec rel err {err_rec:.3g}, stash rel "
-        f"err {err_stash:.3g} (tol {rtol:g})")
-    return abs_err
+        f"err {err_stash:.3g} (tol {rtol:g}), {bits}/{acc.numel()} records "
+        f"bit-equal")
+    return abs_err, bits
+
+
+ROUNDS_K = (1, 3, 4, 5, 8, 16)
+ROUNDS_N = (14, 20, 100, 128, 129, 300)
 
 
 def phase_rounds():
-    errs = []
+    """K1 against its twin: the bench shape (R = 20 and 120 in f32, R = 20
+    in f64), n = 300 (f32) and 16 (f64), phases 5 and 13's small slice,
+    and the cluster's cases: K in ROUNDS_K (one block, uneven splits, two
+    candidates per block) x n in ROUNDS_N (the study's 14, the single
+    tile's edge 128, the multi-tile core from 129) x f32 and f64, inside
+    `dispatch_ok`, plus an indefinite candidate and a `JeffreysUnit` p
+    prior in each dtype. Returns the largest absolute error of the first
+    three f32 cases."""
+    from ccgp_tpu_torch.ops.chol_smallk import dispatch_ok
+
+    errs, bits, recs = [], 0, 0
+
+    def check(args, tol, label, indefinite=False):
+        nonlocal bits, recs
+        err, b = _compare_rounds(args, tol, label, indefinite)
+        bits += b
+        recs += args["log_u"].shape[0]
+        return err
+
     for rr in (20, 120):
-        errs.append(_compare_rounds(
-            _rounds_case(100, rr, torch.float32, 1e-3, seed=rr),
-            F32_RTOL, f"bench shape n=100 K=4 R={rr} f32"))
-    errs.append(_compare_rounds(
-        _rounds_case(300, 4, torch.float32, 1e-3, seed=3), F32_RTOL,
-        "multi-tile n=300 K=4 R=4 f32"))
-    _compare_rounds(_rounds_case(16, 6, torch.float64, 1e-9, seed=2),
-                    F64_RTOL, "small n=16 K=4 R=6 f64")
-    _compare_rounds(_rounds_case(20, 6, torch.float64, 1e-6, seed=5),
-                    F64_RTOL, "phases 5 and 13's small slice n=20 K=4 R=6 f64")
-    _compare_rounds(_rounds_case(100, 20, torch.float64, 1e-6, seed=4),
-                    F64_RTOL, "bench n=100 K=4 R=20 f64")
+        errs.append(check(_rounds_case(100, rr, torch.float32, 1e-3, seed=rr),
+                          F32_RTOL, f"bench shape n=100 K=4 R={rr} f32"))
+    errs.append(check(_rounds_case(300, 4, torch.float32, 1e-3, seed=3),
+                      F32_RTOL, "multi-tile n=300 K=4 R=4 f32"))
+    check(_rounds_case(16, 6, torch.float64, 1e-9, seed=2), F64_RTOL,
+          "small n=16 K=4 R=6 f64")
+    check(_rounds_case(20, 6, torch.float64, 1e-6, seed=5), F64_RTOL,
+          "phases 5 and 13's small slice n=20 K=4 R=6 f64")
+    check(_rounds_case(100, 20, torch.float64, 1e-6, seed=4), F64_RTOL,
+          "bench n=100 K=4 R=20 f64")
+    for kk in ROUNDS_K:
+        for n in ROUNDS_N:
+            if not dispatch_ok(n, kk):
+                continue
+            for dtype, tol, jit in ((torch.float32, F32_RTOL, 1e-3),
+                                    (torch.float64, F64_RTOL, 1e-8)):
+                rr = 6 if n <= 128 else 3
+                check(_rounds_case(n, rr, dtype, jit, seed=n + kk, kk=kk),
+                      tol, f"n={n} K={kk} R={rr} {dtype}")
+    for dtype, tol in ((torch.float32, F32_RTOL), (torch.float64, F64_RTOL)):
+        check(_rounds_case(14, 6, dtype, 0.0, seed=11, kk=5, indefinite=True),
+              tol, f"indefinite candidate 0 n=14 K=5 R=6 {dtype}",
+              indefinite=True)
+        check(_rounds_case(100, 20, dtype, 1e-3, seed=12, jeffreys=True),
+              tol, f"p prior JeffreysUnit n=100 K=4 R=20 {dtype}")
+    log(f"[4] K1: {bits} of {recs} records bit-equal to the twin's")
     return max(errs)
 
 
@@ -322,6 +387,10 @@ def _require_launched(counts: dict, names, path: str) -> None:
 
 
 BENCH_CFG = dict(n_max=5000, samp_size=1000, net_samp_size=1000)
+# recorded / proposals / rounds of the bench chain (key 7, f32), the same
+# on the card in every run since the port began
+BENCH_CHAIN = (1340, 4763, 1844)
+FULL_BAYES_CALLS = 5
 
 
 def phase_main_path():
@@ -348,26 +417,36 @@ def phase_main_path():
         raise AssertionError(f"bayes calibration regression: {cover}")
     if not fit.chain_ok:
         raise AssertionError(f"chain unhealthy: n_recorded={mc.n_recorded}")
+    chain = (mc.n_recorded, mc.n_proposals, mc.n_rounds)
+    if chain != BENCH_CHAIN:
+        raise AssertionError(f"the bench chain moved: {chain}, expected "
+                             f"{BENCH_CHAIN}")
     _require_launched(launches, ("threefry_split_chain",
                                  "fused_mix_mh_rounds"), "full-Bayes path")
 
-    # timed run (same key, so the same chain), CUDA events
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ev0.record()
-    fit2, pred2 = _fit_predict(x, y, grid, 7, torch.float32, "cuda", 1e-3,
+    # timed runs (same key, so the same chain), CUDA events: the spread of
+    # FULL_BAYES_CALLS calls, the median as the time
+    times, walls = [], []
+    for _ in range(FULL_BAYES_CALLS):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev0.record()
+        fit2, _ = _fit_predict(x, y, grid, 7, torch.float32, "cuda", 1e-3,
                                **BENCH_CFG)
-    ev1.record()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    ms = ev0.elapsed_time(ev1)
-    if fit2.mcmc.n_recorded != mc.n_recorded:
-        raise AssertionError("the timed run took another chain")
-    log(f"[5] full-Bayes fit+predict: {ms:.1f} ms (CUDA events), wall "
-        f"{wall_ms:.1f} ms, {1e3 * ms / mc.n_rounds:.1f} us/round over "
-        f"{mc.n_rounds} rounds")
+        ev1.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        times.append(ev0.elapsed_time(ev1))
+        if fit2.mcmc.n_recorded != mc.n_recorded:
+            raise AssertionError("the timed run took another chain")
+    ms = float(np.median(times))
+    log(f"[5] full-Bayes fit+predict over {FULL_BAYES_CALLS} calls (CUDA "
+        f"events): median {ms:.1f} ms, min {min(times):.1f}, max "
+        f"{max(times):.1f} (each: {', '.join(f'{t:.1f}' for t in times)}); "
+        f"wall median {float(np.median(walls)):.1f} ms; "
+        f"{1e3 * ms / mc.n_rounds:.1f} us/round over {mc.n_rounds} rounds")
     _log_profile("[5] full-Bayes", ms, lambda: _fit_predict(
         x, y, grid, 7, torch.float32, "cuda", 1e-3, **BENCH_CFG), 1,
         warm=False)
@@ -1028,6 +1107,80 @@ def phase_sim1d_full():
         f"coverage95={cover:.3f} min_ess={ess:.1f}; fit+predict {ms:.1f} "
         f"ms ({1e3 * ms / mc.n_rounds:.1f} us/round); launches={launches}")
     _require_launched(launches, ("chol_factors_lanes",), "sim_1d full")
+
+
+K1_BLOCK_SIZES = (256, 512, 1024)
+
+
+def _k1_variant(path):
+    """A sweep's build of `csrc/mh_rounds.cu`, loaded with the package's C
+    signatures for K1."""
+    import ctypes
+
+    from ccgp_tpu_torch.ops import _build
+
+    lib = ctypes.CDLL(str(path))
+    for name in ("ccgp_mh_rounds_f32", "ccgp_mh_rounds_f64",
+                 "ccgp_mh_rounds_layout"):
+        fn = getattr(lib, name)
+        fn.argtypes = _build._SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def k1_block_sizes():
+    """Not a phase: K1's single-tile core at each block size of
+    K1_BLOCK_SIZES that holds its tiles, CUDA events per call (R = 120,
+    stash), on the bench shape in f32 and f64, the study's n = 14 in f64
+    and K = 16 (two candidates per block) in f32. Each size is its own
+    build of `csrc/mh_rounds.cu` with -DCCGP_K1_THREADS=<size> (all built
+    in parallel), routed to through `_build.library`; its records must equal
+    the package build's bit for bit. The sweep behind `reg_threads` in
+    `csrc/mh_rounds.cu`; run it alone with python3 -c 'import chip_smoke
+    as s; s.phase_device(); s.phase_build(); s.k1_block_sizes()'."""
+    from ccgp_tpu_torch.ops import _build, chol_smallk
+
+    nvcc = _build._nvcc()
+    src = str(_build.SRC_DIR / "mh_rounds.cu")
+    outs = {nt: _build.BUILD_DIR / "k1_sweep" / f"mh_rounds_{nt}.so"
+            for nt in K1_BLOCK_SIZES}
+    outs[K1_BLOCK_SIZES[0]].parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    _build._run_all([[nvcc, *_build.NVCC_FLAGS, f"-DCCGP_K1_THREADS={nt}",
+                      "-shared", "-o", str(out), src]
+                     for nt, out in outs.items()])
+    log(f"[k1 sweep] {len(outs)} builds of mh_rounds.cu in "
+        f"{time.perf_counter() - t0:.1f} s")
+    variants = {nt: _k1_variant(out) for nt, out in outs.items()}
+    package = _build.library
+    try:
+        for n, kk, dtype, jit in ((100, 4, torch.float32, 1e-3),
+                                  (100, 4, torch.float64, 1e-6),
+                                  (14, 4, torch.float64, 1e-8),
+                                  (100, 16, torch.float32, 1e-3)):
+            args = _rounds_case(n, 120, dtype, jit, seed=n, kk=kk)
+            _build.library = package
+            ref = chol_smallk.fused_mix_mh_rounds(**args)
+            times = []
+            for nt, variant in variants.items():
+                _build.library = lambda: variant  # noqa: E731
+                try:
+                    got = chol_smallk.fused_mix_mh_rounds(**args)
+                except RuntimeError as e:   # fewer threads than tiles
+                    times.append(f"{nt} threads refused ({e})")
+                    continue
+                if not (torch.equal(got["rec"], ref["rec"])
+                        and torch.equal(got["stash"].nan_to_num(),
+                                        ref["stash"].nan_to_num())):
+                    raise AssertionError(f"K1 at {nt} threads moved a bit")
+                ms = _cuda_ms(lambda: chol_smallk.fused_mix_mh_rounds(
+                    **args), 5)
+                times.append(f"{nt} threads {ms:.3f} ms "
+                             f"({1e3 * ms / 120:.1f} us/round)")
+            log(f"[k1 sweep] fused_mix_mh_rounds n={n} K={kk} R=120 "
+                f"{dtype} (CUDA events per call): " + ", ".join(times))
+    finally:
+        _build.library = package
 
 
 # ---------------------------------------------------------------------------
@@ -1757,8 +1910,9 @@ def phase_timing(fit):
                        (rr * kk * (n ** 3 / 3 + 2 * n * n), PEAK_OPS[4]))
         log(f"[6] fused_mix_mh_rounds n=100 K=4 R={rr} f32 stash: kernel "
             f"{k:.3f} ms {how} ({1e3 * k / rr:.1f} us/round; "
-            f"{call:.3f} ms per call), plain {p:.1f} ms per call, "
-            f"cholesky_ex x R {lib:.4f} ms {lib_how} ({lib_call:.3f} "
+            f"{call:.3f} ms per call) on a cluster of "
+            f"{chol_smallk.rounds_layout(n, kk)[0]} SMs, plain {p:.1f} ms per "
+            f"call, cholesky_ex x R {lib:.4f} ms {lib_how} ({lib_call:.3f} "
             f"ms per call), bound {bound[0]:.2e} ms ({bound[1]})")
         out[("fused_mix_mh_rounds", rr)] = (k, p, lib, bound)
     grams, ys, jit = _lanes_inputs(fit)

@@ -14,13 +14,15 @@ quadratics agree to 1e-4 (float32) and 1e-10 (float64) relative to
 max(1, |value|) — room for the math library's exp / log / rsqrt, which
 may differ from PyTorch's in the last place.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
 from ccgp_tpu_torch.models.combination import MixtureSpec
 from ccgp_tpu_torch.models.likelihood import cand_model_for
-from ccgp_tpu_torch.models.priors import InverseGamma, LogNormal
+from ccgp_tpu_torch.models.priors import InverseGamma, JeffreysUnit, LogNormal
 from ccgp_tpu_torch.ops import (_build, chol_lanes, chol_nll, chol_smallk,
                                 gram_chol, kernels, rng)
 from ccgp_tpu_torch.predict.factors import decode_stash
@@ -53,28 +55,48 @@ def test_split_chain_kernel_equals_plain(cuda, rr):
         assert torch.equal(g, r)
 
 
-@pytest.mark.parametrize("n,rr,dtype,tol", [
-    (16, 6, torch.float64, 1e-10),
-    (100, 20, torch.float32, 1e-4),
-    (300, 3, torch.float32, 1e-4),      # beyond one 128-wide tile
-])
-def test_rounds_kernel_equals_plain(cuda, n, rr, dtype, tol):
+def _rounds_args(cuda, n, rr, kk, dtype, indefinite=False, jeffreys=False):
     spec = MixtureSpec(kernels.sqexp_family(), kernels.sqexp_family(),
                        dim=2, rough="tied", anisotropic=True)
     r = np.random.default_rng(n)
     x = r.uniform(size=(n, 2))
-    kk, dim = 4, 4
+    dim = 4
 
     def t(a):
         return torch.tensor(np.asarray(a), dtype=dtype, device=cuda)
 
-    args = dict(x=t(x), y=t(np.sin(5 * x[:, 0]) + np.cos(3 * x[:, 1])),
-                z=t([0.6, 0.4, 0.1, -0.2]), lp_val=t(-1e6), lp_beta=t(0.0),
-                sigma2=t(0.05), deltas=t(0.25 * r.normal(size=(rr * kk, dim))),
-                log_u=t(np.log(r.uniform(size=(rr, kk)))),
+    z, lp_val = [0.6, 0.4, 0.1, -0.2], -1e6
+    jitter = 1e-3 if dtype == torch.float32 else 1e-9
+    deltas = 0.25 * r.normal(size=(rr * kk, dim))
+    if indefinite:
+        # rough state (rates e^4), candidate 0 of every round smooth (e^-4):
+        # the negative jitter makes its near-singular Gram indefinite
+        z, lp_val, jitter = [4.0, 4.0, 0.1, -0.2], -1e30, -0.01
+        deltas[0::kk, :2] -= 8.0
+    return dict(x=t(x), y=t(np.sin(5 * x[:, 0]) + np.cos(3 * x[:, 1])),
+                z=t(z), lp_val=t(lp_val), lp_beta=t(0.0), sigma2=t(0.05),
+                deltas=t(deltas), log_u=t(np.log(r.uniform(size=(rr, kk)))),
                 model=cand_model_for(spec, t(x), LogNormal(-1.0, 1.0),
-                                     InverseGamma(3, 4)),
-                jitter=1e-3 if dtype == torch.float32 else 1e-9, stash=True)
+                                     InverseGamma(3, 4),
+                                     JeffreysUnit() if jeffreys else None),
+                jitter=jitter, stash=True)
+
+
+@pytest.mark.parametrize("n,rr,kk,dtype,tol,indefinite,jeffreys", [
+    (16, 6, 4, torch.float64, 1e-10, False, False),
+    (100, 20, 4, torch.float32, 1e-4, False, False),
+    (300, 3, 4, torch.float32, 1e-4, False, False),  # beyond one 128 tile
+    (14, 6, 1, torch.float64, 1e-10, False, False),  # a cluster of one block
+    (14, 6, 16, torch.float64, 1e-10, False, False),  # two per block
+    (128, 4, 5, torch.float32, 1e-4, False, False),  # the single tile's edge
+    (129, 3, 16, torch.float64, 1e-10, False, False),  # multi-tile, 8 blocks
+    (14, 6, 5, torch.float64, 1e-10, True, False),  # a NaN candidate rejected
+    (100, 20, 4, torch.float32, 1e-4, False, True),  # JeffreysUnit p prior
+    (20, 6, 4, torch.float64, 1e-10, False, True),
+])
+def test_rounds_kernel_equals_plain(cuda, n, rr, kk, dtype, tol, indefinite,
+                                    jeffreys):
+    args = _rounds_args(cuda, n, rr, kk, dtype, indefinite, jeffreys)
     before = chol_smallk.fused_mix_mh_rounds.launches
     got = chol_smallk.fused_mix_mh_rounds(**args)
     torch.cuda.synchronize()
@@ -82,15 +104,43 @@ def test_rounds_kernel_equals_plain(cuda, n, rr, dtype, tol):
     ref = chol_smallk.fused_mix_mh_rounds_plain(**args)
     assert torch.equal(got["acc"], ref["acc"])
     assert torch.equal(got["consumed"], ref["consumed"])
+    assert torch.equal(torch.isnan(got["stash"]), torch.isnan(ref["stash"]))
     assert _rel(got["rec"], ref["rec"]) <= tol
     acc = ref["acc"]
     assert int(acc.sum()) >= 1
+    if indefinite:      # candidate 0 is never taken
+        assert bool((ref["consumed"] >= 2).all())
     for a, b in zip(decode_stash(got["stash"][acc], n),
                     decode_stash(ref["stash"][acc], n)):
         assert _rel(a, b) <= tol
     # a tensor left on the host is refused, not computed
     with pytest.raises(TypeError):
         chol_smallk.fused_mix_mh_rounds(**dict(args, y=args["y"].cpu()))
+
+
+def test_rounds_refused_launch_leaves_no_error(cuda):
+    """K1's entry point outside the envelope (K = 17) returns an error code
+    without launching, and the next launch is not charged with it."""
+    lib = _build.library()
+    args = _rounds_args(cuda, 20, 2, 17, torch.float64)
+    a = {k: v for k, v in args.items() if isinstance(v, torch.Tensor)}
+    st = torch.stack([a["lp_val"], a["lp_beta"], a["sigma2"]])
+    rec = torch.empty((2, 6), dtype=torch.float64, device=cuda)
+    info = torch.empty((2, 2), dtype=torch.int32, device=cuda)
+    code = lib.ccgp_mh_rounds_f64(
+        *(t.data_ptr() for t in (a["x"], a["y"], a["z"], st, a["deltas"],
+                                 a["log_u"], rec, info)),
+        None, None, ctypes.addressof(args["model"]), 20, 2, 4, 2, 17, 0.0,
+        _build.stream(a["x"].device))
+    assert code != 0
+    with pytest.raises(RuntimeError):
+        _build.check(code, "fused_mix_mh_rounds")
+    ok = _rounds_args(cuda, 20, 3, 4, torch.float64)
+    got = chol_smallk.fused_mix_mh_rounds(**ok)
+    torch.cuda.synchronize()
+    ref = chol_smallk.fused_mix_mh_rounds_plain(**ok)
+    assert torch.equal(got["consumed"], ref["consumed"])
+    assert _rel(got["rec"], ref["rec"]) <= 1e-10
 
 
 def test_rounds_kernel_widest_x(cuda):
