@@ -1,10 +1,13 @@
-// chol_core.cuh: the factorization core of the small-K kernels, shared by
-// csrc/chol_smallk.cu (K5, K6, K7), csrc/gram_chol.cu (K8) and the
-// multi-tile path (n > 128) of csrc/mh_rounds.cu (K1), with the
-// SE-mixture Gram build (K1, K6, K7, K8) and the log-posterior and
-// first-acceptance scan (K1, K7) that come before and after it. K1's
-// single-tile path (n <= 128) has its own register-resident core in
-// csrc/mh_rounds.cu, on the same arithmetic.
+// chol_core.cuh: the packed-triangle factorization core
+// (`factor_quadratics`), one block for all of a launch's matrices with a
+// block barrier per pivot. It serves K6 (csrc/chol_smallk.cu, every n),
+// K7 beyond n = 128 (csrc/chol_smallk.cu), K8 (csrc/gram_chol.cu) and K1
+// beyond n = 128 (csrc/mh_rounds.cu, per block of its cluster). Beside it:
+// the arithmetic `Ar`, the SE-mixture Gram build (K1, K6, K7, K8) and the
+// log-posterior and first-acceptance scan (K1, K7). K1, K5 and K7 at
+// n <= 128 run the register-tile core of csrc/tile_core.cuh, and K5
+// beyond 128 its panel core in csrc/chol_smallk.cu, on the same
+// arithmetic.
 //
 // K symmetric n x n matrices, each stored as its packed upper triangle
 // (row i holds columns i..n-1 and starts at rowbase(i, n)), with the two
@@ -49,8 +52,8 @@ __device__ __forceinline__ size_t rowbase(int i, int n) {
   return (size_t)i * (2 * n - i - 1) / 2;
 }
 
-// K packed n x n triangles plus five K x n vectors (RY, RO, WY, WO, DINV);
-// ops/chol_smallk.py allocates the same number of elements
+// K packed n x n triangles plus five K x n vectors (RY, RO, WY, WO, DINV):
+// the workspace of `factor_quadratics`
 __host__ __device__ inline size_t workspace_elems(int n, int K) {
   return (size_t)K * n * (n + 1) / 2 + (size_t)5 * K * n;
 }

@@ -49,8 +49,10 @@
 //     buffer again only after the next round's barrier, which every block
 //     reaches after reading it; a last cluster barrier keeps every block's
 //     shared memory alive until the last reads are done.
-//   - n <= 128, the single-tile core (`factor_tiles`): the augmented
-//     matrix [R | y | 1] is built straight into registers and stays there,
+//   - n <= 128, the register-tile core (`factor_tiles` of
+//     csrc/tile_core.cuh on `SeMixSource`, shared with K5 and K7): the
+//     augmented matrix [R | y | 1] is built straight into registers and
+//     stays there,
 //     one 4 x 4 tile of its upper triangle per thread (350 tiles at
 //     n = 100, 560 at 128), so the forward solve is the same downdate on
 //     columns n and n + 1. A pivot step is two 16-byte loads (L_j at the
@@ -80,18 +82,9 @@
 // pivot order. exp / log / log1p / rsqrt are the CUDA math library's, as
 // PyTorch's elementwise kernels use.
 
-#include <cooperative_groups.h>
-#include <stdint.h>
-
-#include "chol_core.cuh"
+#include "tile_core.cuh"
 
 namespace {
-
-namespace cg = cooperative_groups;
-
-constexpr int MAX_CLUSTER = 8;                  // portable cluster size
-constexpr int MAX_KB = MAX_K / MAX_CLUSTER;     // candidates per block
-constexpr int TILE = 128;                       // single-tile core: n <= TILE
 
 // must match ops/chol_smallk.py CandModel
 struct CandModel {
@@ -199,182 +192,6 @@ __device__ void cand_model(const CandModel& m, const T* z, const T* dl, T s2,
   log_scale = A::log_(A::mul(s, s2));
 }
 
-// mbarriers in shared memory (CTA scope), by their shared-window address:
-// an arrival releases the arriving thread's earlier stores, a completed
-// wait acquires them.
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(unsigned bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               :: "r"(bar) : "memory");
-}
-
-// Wait until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done)
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-}
-
-// The single-tile core factors the AUGMENTED matrix [R | y | 1]: its
-// forward solve of [y, 1] is the same downdate on columns n and n + 1,
-// ry[i] -= L_j[i] (ry[j] dinv) being M[i][n] -= L_j[i] L_j[n]. Thread t
-// holds one TQ x TQ tile of the augmented upper triangle in registers:
-// row tile a (rows TQ a ..) by column tile b >= a (columns TQ b ..), t
-// counting the tiles row tile by row tile. The scaled rows go to shared
-// memory, row j holding columns TQ floor(j / TQ) .. TQ ntc - 1 (ntc column
-// tiles), so that each tile's TQ columns are one aligned vector load.
-constexpr int TQ = 4;
-
-__host__ __device__ inline int col_tiles(int n) {
-  return (n + 2 + TQ - 1) / TQ;
-}
-
-__host__ __device__ inline int row_tiles(int n) { return (n + TQ - 1) / TQ; }
-
-// tiles of the augmented upper triangle: row tile a has ntc - a of them
-__host__ __device__ inline int reg_tiles(int n) {
-  const int ntr = row_tiles(n), ntc = col_tiles(n);
-  return ntr * ntc - ntr * (ntr - 1) / 2;
-}
-
-// offset of row j's first stored column, TQ floor(j / TQ), in the rows of
-// one candidate; aug_row_off(n, .) is their size (a multiple of TQ)
-__host__ __device__ inline int aug_row_off(int j, int n) {
-  const int ncp = TQ * col_tiles(n), m = j / TQ, t = j % TQ;
-  return j * ncp - TQ * (TQ * (m * (m - 1) / 2) + t * m);
-}
-
-// (j, c) of one candidate's scaled rows L, c >= TQ floor(j / TQ)
-template <typename T>
-__device__ __forceinline__ T* aug_at(T* L, int j, int c, int n) {
-  return L + aug_row_off(j, n) + (c - TQ * (j / TQ));
-}
-
-// TQ consecutive values from an aligned address in shared memory
-__device__ __forceinline__ void load_tq(const float* p, float (&v)[TQ]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-
-__device__ __forceinline__ void load_tq(const double* p, double (&v)[TQ]) {
-  const double2 q0 = reinterpret_cast<const double2*>(p)[0];
-  const double2 q1 = reinterpret_cast<const double2*>(p)[1];
-  v[0] = q0.x; v[1] = q0.y; v[2] = q1.x; v[3] = q1.y;
-}
-
-// Pivot j's step, by each tile that holds part of row j (downdated by
-// every earlier pivot): `row` its TQ columns TQ b .., dj the diagonal d_j
-// (every tile of the row keeps it). dinv = rsqrt(d_j) and the scaled
-// entries L_j[c] = M[j][c] dinv (j <= c <= n + 1) into the rows; the
-// diagonal tile stores d_j in D[j]; then the thread arrives on `bar`,
-// which completes when every tile of row j has (ntc - floor(j / TQ)
-// arrivals) and so releases the row to the block.
-template <typename T>
-__device__ __forceinline__ void publish_pivot(T* L, T* D, unsigned bar,
-                                              int j, int b, bool diag, int n,
-                                              const T (&row)[TQ], T dj) {
-  using A = Ar<T>;
-  const T dinv = A::rsqrt_(dj);
-  T* Lj = aug_at(L, j, TQ * b, n);
-#pragma unroll
-  for (int p = 0; p < TQ; ++p) {
-    const int c = TQ * b + p;
-    if (c >= j && c <= n + 1) Lj[p] = A::mul(row[p], dinv);
-  }
-  if (diag) D[j] = dj;
-  mbar_arrive(bar);
-}
-
-// The single-tile core (n <= TILE): one candidate's augmented Gram built
-// into the tiles' registers and factored there (see the header). Leaves
-// the scaled rows at L (aug_row_off(n, n) values) and the pivots d_j at D.
-// Every thread of the block calls it once r1, r2, w1, w2 and wsum are
-// visible; the threads beyond reg_tiles(n) only meet the block barrier at
-// its end.
-//
-// There is no block barrier per pivot: the tiles that publish row j arrive
-// on bar[j], and a tile waits on bar[j] (phase `parity`) only before it
-// applies pivot j, so a tile runs ahead as far as the rows it needs allow;
-// it stops after the pivot below its last row. Each row is written once
-// per factorization, and the block barrier at the end keeps the next
-// factorization from writing a row that is still being read.
-//
-// A tile updates all of its entries without a test: an entry left of the
-// diagonal (c < r), of a finished row (r <= j) or beyond n + 1 takes junk
-// that no one reads (a row is published from its columns r..n+1 before it
-// is finished, and L_j is read at columns up to n + 1 only).
-template <typename T>
-__device__ __forceinline__ void factor_tiles(
-    T* L, T* D, unsigned bar0, unsigned parity, int ta, int tb,
-    const T* __restrict__ x, const T* __restrict__ y, const T* r1,
-    const T* r2, T w1, T w2, T wsum, int n, int d, T jitter) {
-  using A = Ar<T>;
-  if (ta >= 0) {
-    T m[TQ][TQ];   // m[q][p] = M[TQ ta + q][TQ tb + p]
-    // every tile keeps its rows' diagonals, downdated as the diagonal
-    // tile's entries are (li li, li == L_j[r] bit for bit)
-    T dg[TQ];
-#pragma unroll
-    for (int q = 0; q < TQ; ++q) {
-      const int r = TQ * ta + q;
-#pragma unroll
-      for (int p = 0; p < TQ; ++p) {
-        const int c = TQ * tb + p;
-        T v = T(0);
-        if (r < n && c >= r && c < n) {
-          v = se_mix_corr<T>(x, r, c, d, r1, r2, w1, w2, wsum);
-          if (c == r && jitter != T(0)) v = A::add(v, jitter);
-        } else if (r < n && c == n) {
-          v = y[r];
-        } else if (r < n && c == n + 1) {
-          v = T(1);
-        }
-        m[q][p] = v;
-      }
-      dg[q] = T(0);
-      if (r < n) {
-        dg[q] = se_mix_corr<T>(x, r, r, d, r1, r2, w1, w2, wsum);
-        if (jitter != T(0)) dg[q] = A::add(dg[q], jitter);
-      }
-    }
-    const bool diag = ta == tb;
-    if (ta == 0) publish_pivot<T>(L, D, bar0, 0, tb, diag, n, m[0], dg[0]);
-    // the tile applies the pivots below its last row
-    const int last = min(TQ * ta + TQ - 1, n - 1);
-    for (int j = 0; j < last; ++j) {
-      mbar_wait(bar0 + 8 * j, parity);
-      T li[TQ], lc[TQ];
-      load_tq(aug_at(L, j, TQ * ta, n), li);
-      load_tq(aug_at(L, j, TQ * tb, n), lc);
-#pragma unroll
-      for (int q = 0; q < TQ; ++q) {
-#pragma unroll
-        for (int p = 0; p < TQ; ++p)
-          m[q][p] = A::sub(m[q][p], A::mul(li[q], lc[p]));
-        dg[q] = A::sub(dg[q], A::mul(li[q], li[q]));
-      }
-#pragma unroll
-      for (int q = 0; q < TQ; ++q)
-        if (TQ * ta + q == j + 1)
-          publish_pivot<T>(L, D, bar0 + 8 * (j + 1), j + 1, tb, diag, n,
-                           m[q], dg[q]);
-    }
-  }
-  __syncthreads();
-}
-
 enum { CORE_REG = 0, CORE_SMEM, CORE_GLOBAL };
 
 template <typename T>
@@ -441,18 +258,11 @@ __global__ void __launch_bounds__(NTB) mh_rounds_kernel(const RoundsArgs<T> a) {
   T* const Laug = (T*)smem_raw;
   T* const Dpiv = Laug + kbm * naug;
   int ta = -1, tb = 0;
-  if (REG && tid < reg_tiles(n)) {
-    const int ntc = col_tiles(n);
-    int first = 0;   // the tiles of the row tiles before ta
-    for (ta = 0; first + ntc - ta <= tid; ++ta) first += ntc - ta;
-    tb = ta + tid - first;
-  }
+  if (REG) tile_of(tid, n, ta, tb);
   const T s2 = a.st[2];
 
   for (int c = tid; c < dim; c += NTB) s_z[c] = a.z0[c];
-  // bar[j] completes when every tile of row j has published its part
-  if (REG && tid < n)
-    mbar_init(smem_addr(&s_bar[tid]), col_tiles(n) - tid / TQ);
+  if (REG) init_row_bars(s_bar, n, NTB);
   if (tid == 0) {
     s_lpv = a.st[0];
     s_lpb = a.st[1];
@@ -477,10 +287,12 @@ __global__ void __launch_bounds__(NTB) mh_rounds_kernel(const RoundsArgs<T> a) {
 
     // 2.-3. the Grams, their factorizations and forward solves
     if constexpr (REG) {
-      for (int lk = 0; lk < kb; ++lk, ++gen)
+      for (int lk = 0; lk < kb; ++lk, ++gen) {
+        const SeMixSource<T> src{a.x,       s_r1[lk], s_r2[lk], s_w1[lk],
+                                 s_w2[lk],  s_ws[lk], a.jitter, a.d};
         factor_tiles<T>(Laug + lk * naug, Dpiv + lk * n, smem_addr(s_bar),
-                        gen & 1, ta, tb, a.x, a.y, s_r1[lk], s_r2[lk],
-                        s_w1[lk], s_w2[lk], s_ws[lk], n, a.d, a.jitter);
+                        gen & 1, ta, tb, src, a.y, n);
+      }
       for (int e = tid; e < kb * n; e += NTB) Dpiv[e] = A::log_(Dpiv[e]);
       __syncthreads();
     } else {
@@ -497,18 +309,8 @@ __global__ void __launch_bounds__(NTB) mh_rounds_kernel(const RoundsArgs<T> a) {
       if constexpr (REG) {
         // logdet and the quadratics in pivot order from log d_j, L^-1 y
         // and L^-1 1 (columns n and n + 1 of the augmented rows)
-        ld = qyy = qoy = qoo = T(0);
-        T* const La = Laug + tid * naug;
-        const T* lg = Dpiv + tid * n;
-#pragma unroll 4
-        for (int j = 0; j < n; ++j) {
-          const T* Lr = aug_at(La, j, n, n);
-          const T wy = Lr[0], wo = Lr[1];
-          ld = A::add(ld, lg[j]);
-          qyy = A::add(qyy, A::mul(wy, wy));
-          qoy = A::add(qoy, A::mul(wy, wo));
-          qoo = A::add(qoo, A::mul(wo, wo));
-        }
+        tile_quadratics<T>(Laug + tid * naug, Dpiv + tid * n, n, ld, qyy, qoy,
+                           qoo);
       } else {
         ld = s_ld[tid];
         qyy = s_qyy[tid];
@@ -594,44 +396,6 @@ __global__ void __launch_bounds__(NTB) mh_rounds_kernel(const RoundsArgs<T> a) {
   cluster.sync();
 }
 
-// Launch the kernel as one cluster of C blocks with `smem` bytes of dynamic
-// shared memory, after checking that the card can place such a cluster.
-// Returns the first error (the caller clears it).
-template <typename T, int NTB, int CORE>
-cudaError_t launch_cluster(const RoundsArgs<T>& a, int C, size_t smem,
-                           cudaStream_t s) {
-  void (*kern)(RoundsArgs<T>) = mh_rounds_kernel<T, NTB, CORE>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, 1, 1);
-  cfg.blockDim = dim3(NTB, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
-  if (err != cudaSuccess) return err;
-  if (clusters < 1) return cudaErrorLaunchOutOfResources;
-  return cudaLaunchKernelEx(&cfg, kern, a);
-}
-
-// The single-tile core's block size, measured on the bench shape (PERF.md
-// section 6): f32 1024 threads; f64 512 where the tiles fit (at 1024 a
-// thread has 64 registers, fewer than an f64 tile needs). 512 threads hold
-// the tiles of n <= 122, 1024 those of n <= TILE (560).
-template <typename T>
-int reg_threads(int tiles) {
-  return sizeof(T) == 4 || tiles > 512 ? 1024 : 512;
-}
-
 // The launch's layout, the one place it is decided: a cluster of
 // C = min(K, 8) blocks, each carrying at most kbm = ceil(K / C) candidates;
 // beyond one tile, a global workspace of C slices of workspace_elems(n, kbm)
@@ -669,11 +433,14 @@ int launch(const void* x, const void* y, const void* z, const void* st,
 #ifdef CCGP_K1_THREADS
     // a block-size sweep's own build (chip_smoke.k1_block_sizes)
     if (reg_tiles(n) > CCGP_K1_THREADS) return (int)cudaErrorInvalidValue;
-    err = launch_cluster<T, CCGP_K1_THREADS, CORE_REG>(a, lay.C, bytes, s);
+    err = launch_cluster(mh_rounds_kernel<T, CCGP_K1_THREADS, CORE_REG>, a,
+                         lay.C, 1, CCGP_K1_THREADS, bytes, s);
 #else
     err = reg_threads<T>(reg_tiles(n)) == 1024
-              ? launch_cluster<T, 1024, CORE_REG>(a, lay.C, bytes, s)
-              : launch_cluster<T, 512, CORE_REG>(a, lay.C, bytes, s);
+              ? launch_cluster(mh_rounds_kernel<T, 1024, CORE_REG>, a, lay.C,
+                               1, 1024, bytes, s)
+              : launch_cluster(mh_rounds_kernel<T, 512, CORE_REG>, a, lay.C,
+                               1, 512, bytes, s);
 #endif
   } else {
     const size_t bytes = workspace_elems(n, lay.kbm) * sizeof(T);
@@ -683,16 +450,14 @@ int launch(const void* x, const void* y, const void* z, const void* st,
     err = cudaFuncGetAttributes(&fa, mh_rounds_kernel<T, NT, CORE_SMEM>);
     if (err == cudaSuccess)
       err = fa.sharedSizeBytes + bytes <= SMEM_PER_BLOCK
-                ? launch_cluster<T, NT, CORE_SMEM>(a, lay.C, bytes, s)
+                ? launch_cluster(mh_rounds_kernel<T, NT, CORE_SMEM>, a,
+                                 lay.C, 1, NT, bytes, s)
                 : ws == nullptr
                       ? cudaErrorInvalidValue
-                      : launch_cluster<T, NT, CORE_GLOBAL>(a, lay.C, 0, s);
+                      : launch_cluster(mh_rounds_kernel<T, NT, CORE_GLOBAL>, a,
+                                       lay.C, 1, NT, 0, s);
   }
-  if (err != cudaSuccess) {
-    cudaGetLastError();   // a refused launch never ran: clear its error
-    return (int)err;
-  }
-  return (int)cudaGetLastError();
+  return launch_result(err);
 }
 
 }  // namespace

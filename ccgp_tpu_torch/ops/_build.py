@@ -51,6 +51,9 @@ _SIGNATURES = {
     # grams, y, q, chol, wy, wo, B, n, factors, jitter, stream
     "ccgp_chol_lanes_f32": [_P] * 6 + [_I] * 3 + [_D, _P],
     "ccgp_chol_lanes_f64": [_P] * 6 + [_I] * 3 + [_D, _P],
+    # which (0: K5, 1: K6, 2: K7), n, K, elem bytes, &cluster, &blocks,
+    # &ws_elems
+    "ccgp_smallk_layout": [_I] * 4 + [_P] * 3,
     # grams, y, q, ws, n, K, jitter, stream
     "ccgp_chol_quad_smallk_f32": [_P] * 4 + [_I] * 2 + [_D, _P],
     "ccgp_chol_quad_smallk_f64": [_P] * 4 + [_I] * 2 + [_D, _P],

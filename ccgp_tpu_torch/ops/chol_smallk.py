@@ -1,9 +1,10 @@
 """The small-K latency kernels (port of
 `ccgp_tpu/ops/pallas_chol_smallk.py`): K <= 16 matrices factored in one
 launch, each a right-looking Cholesky with the forward solve of [y, 1]
-fused in and logdet and the quadratics accumulated in pivot order (the
-core `csrc/chol_core.cuh`; K1 at n <= 128 its own register-resident core
-in `csrc/mh_rounds.cu`). Four wrappers, each with its plain
+fused in and logdet and the quadratics accumulated in pivot order (K1, K5
+and K7 at n <= 128 on the register-tile core `csrc/tile_core.cuh`; K5
+beyond on a panel core over a thread-block cluster; K6, K7 beyond 128 and
+K1 beyond 128 on `csrc/chol_core.cuh`). Four wrappers, each with its plain
 PyTorch twin (the same operations in the same order) and a launch counter:
 
   chol_quadratics_smallk       K5  {logdet, qyy, qoy, qoo} of K
@@ -25,9 +26,12 @@ built from x as sum_k r_k (x_ik - x_jk)^2, the factorization, the
 log-posterior; then the first-acceptance scan (a NaN log-posterior
 compares False and so rejects) and the state carry.
 
-On a CUDA tensor each wrapper launches its kernel: for K5-K7 one thread
-block for all K matrices; for K1 one cluster of min(K, 8) blocks for all
-R rounds, each block factoring its own candidates. On a CPU tensor it
+On a CUDA tensor each wrapper launches its kernel (`smallk_layout` and
+`rounds_layout` say how): K5 a block per Gram up to n = 128 and a cluster
+of 8 or 16 blocks per Gram beyond; K7 up to n = 128 one cluster of
+min(K, 8) blocks, a block per candidate; K6, and K7 beyond 128, one
+thread block for all K matrices; K1 one cluster of min(K, 8) blocks for
+all R rounds, each block factoring its own candidates. On a CPU tensor it
 runs its twin. A non-PD matrix gives NaN quadratics, never an exception.
 
 The stash layout is the port's own: (R, n+2, n), row j < n holding
@@ -430,11 +434,30 @@ def _device_of(t: torch.Tensor) -> str:
     return t.device.type
 
 
-def _workspace(n: int, kk: int, like: torch.Tensor) -> torch.Tensor:
-    """csrc/chol_core.cuh workspace_elems: K packed triangles and five
-    K x n vectors (moved to shared memory by the kernel when they fit)."""
-    return torch.empty(kk * n * (n + 1) // 2 + 5 * kk * n, dtype=like.dtype,
-                       device=like.device)
+_SMALLK_KERNELS = ("chol_quadratics_smallk", "fused_mix_quadratics_smallk",
+                   "fused_mix_mh_round")
+
+
+def smallk_layout(kernel: str, n: int, k: int,
+                  dtype) -> tuple[int, int, int]:
+    """K5's, K6's or K7's launch for n and K as `csrc/chol_smallk.cu` lays
+    it out: (thread blocks per cluster, 1 for none; thread blocks in all;
+    elements of the global workspace it takes, 0 for none). Needs the
+    kernel library."""
+    cluster, blocks = ctypes.c_int(), ctypes.c_int()
+    elems = ctypes.c_longlong()
+    elem = torch.empty((), dtype=dtype).element_size()
+    _build.check(_build.library().ccgp_smallk_layout(
+        _SMALLK_KERNELS.index(kernel), n, k, elem, ctypes.addressof(cluster),
+        ctypes.addressof(blocks), ctypes.addressof(elems)), f"{kernel} layout")
+    return cluster.value, blocks.value, elems.value
+
+
+def _workspace(kernel: str, n: int, kk: int, like: torch.Tensor):
+    """The global workspace `smallk_layout` asks for, or None."""
+    elems = smallk_layout(kernel, n, kk, like.dtype)[2]
+    return (torch.empty(elems, dtype=like.dtype, device=like.device)
+            if elems > 0 else None)
 
 
 def _lib_fn(name: str, dtype):
@@ -462,15 +485,16 @@ def chol_quadratics_smallk_plain(grams, y, jitter=0.0) -> dict:
 def chol_quadratics_smallk(grams, y, jitter=0.0) -> dict:
     """{logdet, qyy, qoy, qoo} of K <= 16 Grams (K, n, n) inside
     `dispatch_ok`, with an absolute jitter on the diagonal; only the lower
-    triangle is read. CUDA tensors launch `csrc/chol_smallk.cu` (K5); CPU
-    tensors take the plain version."""
+    triangle is read. CUDA tensors launch `csrc/chol_smallk.cu` (K5: a
+    block per Gram up to n = 128, a cluster per Gram beyond); CPU tensors
+    take the plain version."""
     if _device_of(grams) == "cpu":
         return chol_quadratics_smallk_plain(grams, y, jitter)
     _check_grams(grams, y)
     kk, n, _ = grams.shape
     grams, y = grams.contiguous(), y.contiguous()
     q = torch.empty((kk, 4), dtype=grams.dtype, device=grams.device)
-    ws = _workspace(n, kk, grams)
+    ws = _workspace("chol_quadratics_smallk", n, kk, grams)
     fn = _lib_fn("ccgp_chol_quad_smallk", grams.dtype)
     chol_quadratics_smallk.launches += 1
     _build.check(fn(_build.ptr(grams), _build.ptr(y), _build.ptr(q),
@@ -499,7 +523,7 @@ def fused_mix_quadratics_smallk(x, y, r1, r2, p, jitter=0.0) -> dict:
     kk = r1.shape[0]
     x, y, r1, r2, p = (t.contiguous() for t in (x, y, r1, r2, p))
     q = torch.empty((kk, 4), dtype=x.dtype, device=x.device)
-    ws = _workspace(n, kk, x)
+    ws = _workspace("fused_mix_quadratics_smallk", n, kk, x)
     fn = _lib_fn("ccgp_mix_quad_smallk", x.dtype)
     fused_mix_quadratics_smallk.launches += 1
     _build.check(fn(_build.ptr(x), _build.ptr(y), _build.ptr(r1),
@@ -553,8 +577,9 @@ def fused_mix_mh_round(x, y, r1, r2, p, extra, log_scale, cands, lp_val,
     with (val_k - lp_val) > log_u[k] (a NaN log-posterior rejects).
     Returns (z_new (dim,), val_new, beta_new, any_acc, consumed): with no
     acceptance z_new is 0, val_new = lp_val, beta_new = lp_beta and
-    consumed = K. CUDA tensors launch `csrc/chol_smallk.cu` (K7); CPU
-    tensors take the plain version."""
+    consumed = K. CUDA tensors launch `csrc/chol_smallk.cu` (K7: a cluster
+    of min(K, 8) blocks up to n = 128, one block beyond); CPU tensors take
+    the plain version."""
     if _device_of(x) == "cpu":
         return fused_mix_mh_round_plain(x, y, r1, r2, p, extra, log_scale,
                                         cands, lp_val, lp_beta, log_u,
@@ -572,7 +597,7 @@ def fused_mix_mh_round(x, y, r1, r2, p, extra, log_scale, cands, lp_val,
     z_out = torch.empty(dim, dtype=dt, device=dev)
     vb = torch.empty(2, dtype=dt, device=dev)
     info = torch.empty(2, dtype=torch.int32, device=dev)
-    ws = _workspace(n, kk, x)
+    ws = _workspace("fused_mix_mh_round", n, kk, x)
     fn = _lib_fn("ccgp_mix_mh_round", dt)
     fused_mix_mh_round.launches += 1
     _build.check(fn(*(_build.ptr(t) for t in bufs), _build.ptr(z_out),

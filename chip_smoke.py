@@ -23,13 +23,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      128}, f32 and f64, plus an indefinite and a rank-deficient batch
      whose NaNs must fall on the same matrices, and a batch with NaN
      above the diagonal (only the lower triangle may be read);
- 11. the small-K kernels against their plain versions: K5 (materialized
-     Grams) over K in {1, 4, 16} x n in {8, 100, 256, 512} and (4, 1024),
-     K6 (in-kernel SE-mixture Grams) and K7 (a whole speculative round:
-     equal any_acc and consumed) over K in {4, 16} x n in {8, 100, 256} x
-     d in {1, 2, 9}, (4, 20, 2) and (4, 100, 128), f32 and f64, plus
-     indefinite batches whose NaNs must fall on the same members, and NaN
-     above the diagonal for K5;
+ 11. the small-K kernels against their plain versions, with the count
+     of bit-equal records: K5 (materialized Grams; register tiles up to
+     n = 128, a cluster per Gram beyond) over K in {1, 4, 16} x n in {8,
+     100, 127, 128, 129, 256, 512} and (4, 1024), K6 (in-kernel SE-mixture
+     Grams) and K7 (a whole speculative round: equal any_acc and consumed,
+     every member taken first in turn and none) over K in {4, 16} x n in
+     {8, 100, 256} x d in {1, 2, 9}, K in {4, 16} x n in {127, 128, 129},
+     (4, 20, 2) and (4, 100, 128), f32 and f64, plus indefinite batches
+     (n = 40 and 150) whose NaNs must fall on the same members, and NaN
+     above the diagonal for K5 (n = 100 and 300);
   5. the full-Bayes path: `fit_combined_gp` -> `predict_combined_gp` at the
      bench workload (2-D anisotropic SE x SE, tied rough rates, n = 100,
      25 x 25 lattice, speculative K = 4, n_max 5000, samp_size 1000, f32,
@@ -47,10 +50,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      `predict_combined_gp` with phase 5's key: the same chain, and
      predictions that match phase 5's stash path;
   6. each kernel's time next to its plain version's and a library call's
-     at the main paths' shapes (K8 at an EB row and the MAP cloud, K9 at
-     the MAP cloud): device time under torch.profiler where it kept a
-     record of every launch the wrapper counted, else the CUDA-event time
-     per call; K1's cluster size and us/round;
+     at the main paths' shapes (K5 at the 1-D round and at n = 100, 256,
+     512 and 1024, K6 and K7 at the bench's one-round shape, K8 at an EB
+     row and the MAP cloud, K9 at the MAP cloud): device time under
+     torch.profiler where it kept a record of every launch the wrapper
+     counted, else the CUDA-event time per call; K1's cluster size and
+     us/round;
  12. the 1-D models at full width (n = 8, 50 points, f64, function 1 on
      the `random_lhs` design `sim_1d.run` draws from PRNGKey(0), the
      --fast MCMC budget): `sim_1d`'s Matern x Matern and
@@ -851,14 +856,14 @@ def _compare_round(args, rnd, tol, label):
     return err, abs_err, equal, int(got[4])
 
 
-def indefinite_batch():
-    """16 Grams of n = 40 (rank 20) whose odd members get -1e-2 I (a
-    negative pivot: NaN) and even members +1e-2 I, and a response."""
+def indefinite_batch(n=40, rank=20):
+    """16 Grams of size n and the given rank whose odd members get -1e-2 I
+    (a negative pivot: NaN) and even members +1e-2 I, and a response."""
     r = np.random.default_rng(4)
-    v = r.normal(size=(16, 40, 20))
+    v = r.normal(size=(16, n, rank))
     shift = np.where(np.arange(16) % 2 == 1, -1e-2, 1e-2)
-    return (v @ np.swapaxes(v, 1, 2) / 40 + shift[:, None, None]
-            * np.eye(40)), r.normal(size=40)
+    return (v @ np.swapaxes(v, 1, 2) / n + shift[:, None, None]
+            * np.eye(n)), r.normal(size=n)
 
 
 def phase_smallk():
@@ -868,8 +873,9 @@ def phase_smallk():
     for dtype, jitter in ((torch.float32, 1e-3), (torch.float64, 1e-6)):
         tol = F32_RTOL if dtype == torch.float32 else F64_RTOL
         t = lambda a: torch.tensor(a, dtype=dtype, device="cuda")  # noqa: E731
-        errs, bit = [], True
-        shapes = [(kk, n) for kk in (1, 4, 16) for n in (8, 100, 256, 512)]
+        errs, bit, nbit, cores = [], True, 0, set()
+        shapes = [(kk, n) for kk in (1, 4, 16)
+                  for n in (8, 100, 127, 128, 129, 256, 512)]
         for kk, n in shapes + [(4, 1024)]:
             g, y = (t(a) for a in se_grams(kk, n, seed=kk + n))
             got = chol_smallk.chol_quadratics_smallk(g, y, jitter=jitter)
@@ -881,36 +887,46 @@ def phase_smallk():
             errs.append(e)
             abs5 = max(abs5, ae)
             bit = bit and eq
+            nbit += eq
+            cores.add(chol_smallk.smallk_layout("chol_quadratics_smallk", n,
+                                                kk, dtype)[:2])
         log(f"[11] K5 chol_quadratics_smallk == plain for K in {{1,4,16}} x "
-            f"n in {{8,100,256,512}} and (4, 1024), {dtype}: max rel err "
-            f"{max(errs):.3g} (tol {tol:g}); bit-equal: {bit}")
-        # only the lower triangle is read; an indefinite batch gives NaN on
-        # the same members in kernel and twin
-        g, y = (t(a) for a in se_grams(4, 100, seed=5))
-        iu = torch.triu_indices(100, 100, 1, device="cuda")
-        junk = g.clone()
-        junk[:, iu[0], iu[1]] = math.nan
-        a = chol_smallk.chol_quadratics_smallk(g, y, jitter=jitter)
-        b = chol_smallk.chol_quadratics_smallk(junk, y, jitter=jitter)
-        if not all(torch.equal(a[k], b[k]) for k in a):
-            raise AssertionError("K5: the upper triangle changed an output")
-        g, y = (t(a) for a in indefinite_batch())
-        got = chol_smallk.chol_quadratics_smallk(g, y)
-        _, ae, _ = _compare_quads(
-            got, chol_smallk.chol_quadratics_smallk_plain(g, y), tol,
-            f"K5 indefinite {dtype}")
-        abs5 = max(abs5, ae)
-        nan = ~torch.isfinite(got["logdet"])
-        if not torch.equal(nan.cpu(), torch.arange(16) % 2 == 1):
-            raise AssertionError("K5: NaN on the wrong members")
-        log(f"[11] K5 {dtype}: NaN above the diagonal changes no output; "
-            f"an indefinite batch is NaN on its {int(nan.sum())} odd "
-            f"members in kernel and twin")
+            f"n in {{8,100,127,128,129,256,512}} and (4, 1024), {dtype}: max "
+            f"rel err {max(errs):.3g} (tol {tol:g}); bit-equal: {bit} "
+            f"({nbit} of {len(errs)}); (cluster, blocks) seen "
+            f"{sorted(cores)}")
+        # only the lower triangle is read, on both cores; an indefinite
+        # batch gives NaN on the same members in kernel and twin
+        for n in (100, 300):
+            g, y = (t(a) for a in se_grams(4, n, seed=5))
+            iu = torch.triu_indices(n, n, 1, device="cuda")
+            junk = g.clone()
+            junk[:, iu[0], iu[1]] = math.nan
+            a = chol_smallk.chol_quadratics_smallk(g, y, jitter=jitter)
+            b = chol_smallk.chol_quadratics_smallk(junk, y, jitter=jitter)
+            if not all(torch.equal(a[k], b[k]) for k in a):
+                raise AssertionError(f"K5 n={n}: the upper triangle changed "
+                                     f"an output")
+        for n, rank in ((40, 20), (150, 60)):
+            g, y = (t(a) for a in indefinite_batch(n, rank))
+            got = chol_smallk.chol_quadratics_smallk(g, y)
+            _, ae, _ = _compare_quads(
+                got, chol_smallk.chol_quadratics_smallk_plain(g, y), tol,
+                f"K5 indefinite n={n} {dtype}")
+            abs5 = max(abs5, ae)
+            nan = ~torch.isfinite(got["logdet"])
+            if not torch.equal(nan.cpu(), torch.arange(16) % 2 == 1):
+                raise AssertionError(f"K5 n={n}: NaN on the wrong members")
+        log(f"[11] K5 {dtype}: NaN above the diagonal changes no output at "
+            f"n = 100 and 300; indefinite batches at n = 40 and 150 are NaN "
+            f"on their {int(nan.sum())} odd members in kernel and twin")
 
         errs6, errs7, bit6, bit7, consumed = [], [], True, True, set()
         cases = [(kk, n, d) for kk in (4, 16) for n in (8, 100, 256)
                  for d in (1, 2, 9)]
-        # phase 13's small slice, and the widest x the kernels hold
+        # the edge of K7's cluster core, phase 13's small slice, and the
+        # widest x the kernels hold
+        cases += [(kk, n, 2) for kk in (4, 16) for n in (127, 128, 129)]
         cases += [(4, 20, 2), (4, 100, chol_smallk.MAX_D)]
         for kk, n, d in cases:
             label = f"K={kk} n={n} d={d} {dtype}"
@@ -924,10 +940,16 @@ def phase_smallk():
             errs6.append(e)
             abs6 = max(abs6, ae)
             bit6 = bit6 and eq
-            for lp in (-1e6, 0.0, 1e6):
-                rnd["lp_val"] = t(lp)
-                e, ae, eq, c = _compare_round(dict(args, jitter=jitter), rnd,
-                                              tol, label + f" lp_val={lp:g}")
+            # lp_val thresholds that accept some, any or none; then each
+            # member in turn taken first (log_u -inf there, +inf before it)
+            rounds = [(t(lp), rnd["log_u"]) for lp in (-1e6, 0.0, 1e6)]
+            rounds += [(t(-1e6), t(np.where(np.arange(kk) < m, np.inf,
+                                            -np.inf))) for m in range(kk)]
+            for lp, log_u in rounds:
+                e, ae, eq, c = _compare_round(
+                    dict(args, jitter=jitter), dict(rnd, lp_val=lp,
+                                                    log_u=log_u),
+                    tol, label + f" lp_val={float(lp):g}")
                 errs7.append(e)
                 abs7 = max(abs7, ae)
                 bit7 = bit7 and eq
@@ -935,7 +957,8 @@ def phase_smallk():
         log(f"[11] K6 fused_mix_quadratics_smallk == plain and K7 "
             f"fused_mix_mh_round == plain (any_acc and consumed equal; "
             f"consumed seen {sorted(consumed)}) for K in {{4,16}} x n in "
-            f"{{8,100,256}} x d in {{1,2,9}}, (4, 20, 2) and (4, 100, "
+            f"{{8,100,256}} x d in {{1,2,9}}, K in {{4,16}} x n in "
+            f"{{127,128,129}} x d = 2, (4, 20, 2) and (4, 100, "
             f"{chol_smallk.MAX_D}), {dtype}: max rel err "
             f"{max(errs6):.3g} / {max(errs7):.3g} (tol {tol:g}); "
             f"bit-equal: {bit6} / {bit7}")
@@ -1112,20 +1135,38 @@ def phase_sim1d_full():
 K1_BLOCK_SIZES = (256, 512, 1024)
 
 
-def _k1_variant(path):
-    """A sweep's build of `csrc/mh_rounds.cu`, loaded with the package's C
-    signatures for K1."""
+def _variant(path, names):
+    """A sweep's build of one source, loaded with the package's C
+    signatures for its entry points `names`."""
     import ctypes
 
     from ccgp_tpu_torch.ops import _build
 
     lib = ctypes.CDLL(str(path))
-    for name in ("ccgp_mh_rounds_f32", "ccgp_mh_rounds_f64",
-                 "ccgp_mh_rounds_layout"):
+    for name in names:
         fn = getattr(lib, name)
         fn.argtypes = _build._SIGNATURES[name]
         fn.restype = ctypes.c_int
     return lib
+
+
+def _build_variants(source, defines):
+    """One build of csrc/<source> per entry of `defines` (a label -> nvcc
+    -D flags), all in parallel, into _build/sweep/. Returns label -> path."""
+    from ccgp_tpu_torch.ops import _build
+
+    nvcc = _build._nvcc()
+    src = str(_build.SRC_DIR / source)
+    outs = {label: _build.BUILD_DIR / "sweep" / f"{source}.{label}.so"
+            for label in defines}
+    next(iter(outs.values())).parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    _build._run_all([[nvcc, *_build.NVCC_FLAGS, *flags, "-shared", "-o",
+                      str(outs[label]), src]
+                     for label, flags in defines.items()])
+    log(f"[sweep] {len(outs)} builds of {source} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return outs
 
 
 def k1_block_sizes():
@@ -1140,18 +1181,11 @@ def k1_block_sizes():
     as s; s.phase_device(); s.phase_build(); s.k1_block_sizes()'."""
     from ccgp_tpu_torch.ops import _build, chol_smallk
 
-    nvcc = _build._nvcc()
-    src = str(_build.SRC_DIR / "mh_rounds.cu")
-    outs = {nt: _build.BUILD_DIR / "k1_sweep" / f"mh_rounds_{nt}.so"
-            for nt in K1_BLOCK_SIZES}
-    outs[K1_BLOCK_SIZES[0]].parent.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    _build._run_all([[nvcc, *_build.NVCC_FLAGS, f"-DCCGP_K1_THREADS={nt}",
-                      "-shared", "-o", str(out), src]
-                     for nt, out in outs.items()])
-    log(f"[k1 sweep] {len(outs)} builds of mh_rounds.cu in "
-        f"{time.perf_counter() - t0:.1f} s")
-    variants = {nt: _k1_variant(out) for nt, out in outs.items()}
+    outs = _build_variants("mh_rounds.cu", {
+        nt: [f"-DCCGP_K1_THREADS={nt}"] for nt in K1_BLOCK_SIZES})
+    variants = {nt: _variant(out, ("ccgp_mh_rounds_f32", "ccgp_mh_rounds_f64",
+                                   "ccgp_mh_rounds_layout"))
+                for nt, out in outs.items()}
     package = _build.library
     try:
         for n, kk, dtype, jit in ((100, 4, torch.float32, 1e-3),
@@ -1179,6 +1213,60 @@ def k1_block_sizes():
                              f"({1e3 * ms / 120:.1f} us/round)")
             log(f"[k1 sweep] fused_mix_mh_rounds n={n} K={kk} R=120 "
                 f"{dtype} (CUDA events per call): " + ", ".join(times))
+    finally:
+        _build.library = package
+
+
+# (cluster blocks C, rows per panel b) of K5's panel core
+K5_PANEL_SIZES = ((4, 8), (8, 4), (8, 8), (16, 4), (16, 8))
+
+
+def k5_panel_sizes():
+    """Not a phase: K5's panel core (n > 128) at each (cluster blocks C,
+    rows per panel b) of K5_PANEL_SIZES, CUDA events per call, at K = 4 and
+    n in {256, 512, 1024} in f32, n = 512 in f64, and K = 16, n = 512 in
+    f32 (16 clusters). Each size is its own
+    build of `csrc/chol_smallk.cu` with -DCCGP_K5_PANEL_C=<C>
+    -DCCGP_K5_PANEL_B=<b> (all built in parallel), routed to through
+    `_build.library`; its quadratics must equal the package build's bit for
+    bit. The sweep behind `layout` in `csrc/chol_smallk.cu`; run it alone
+    with python3 -c 'import chip_smoke as s; s.phase_device();
+    s.phase_build(); s.k5_panel_sizes()'."""
+    from ccgp_tpu_torch.ops import _build, chol_smallk
+
+    outs = _build_variants("chol_smallk.cu", {
+        f"C{c}b{b}": [f"-DCCGP_K5_PANEL_C={c}", f"-DCCGP_K5_PANEL_B={b}"]
+        for c, b in K5_PANEL_SIZES})
+    variants = {label: _variant(out, ("ccgp_chol_quad_smallk_f32",
+                                      "ccgp_chol_quad_smallk_f64",
+                                      "ccgp_smallk_layout"))
+                for label, out in outs.items()}
+    package = _build.library
+    try:
+        for kk, n, dtype in ((4, 256, torch.float32),
+                             (4, 512, torch.float32),
+                             (4, 1024, torch.float32),
+                             (4, 512, torch.float64),
+                             (16, 512, torch.float32)):
+            g, y = (torch.tensor(a, dtype=dtype, device="cuda")
+                    for a in se_grams(kk, n, seed=n))
+            fn = lambda: chol_smallk.chol_quadratics_smallk(g, y, jitter=1e-3)  # noqa: E731
+            _build.library = package
+            ref = fn()
+            times = [f"package {_cuda_ms(fn, 20):.4f} ms"]
+            for label, variant in variants.items():
+                _build.library = lambda: variant  # noqa: E731
+                try:
+                    got = fn()
+                    torch.cuda.synchronize()
+                except RuntimeError as e:   # a cluster the card refuses
+                    times.append(f"{label} refused ({e})")
+                    continue
+                if not all(torch.equal(got[k], ref[k]) for k in ref):
+                    raise AssertionError(f"K5 at {label} moved a bit")
+                times.append(f"{label} {_cuda_ms(fn, 20):.4f} ms")
+            log(f"[k5 sweep] chol_quadratics_smallk K={kk} n={n} {dtype} "
+                f"(CUDA events per call): " + ", ".join(times))
     finally:
         _build.library = package
 
@@ -1670,17 +1758,20 @@ def phase_baselines_1d():
         raise AssertionError("1-D baselines: non-finite predictions")
 
 
-# each counted wrapper's kernel, by substrings of the demangled name the
-# profiler gives it
-_SYMBOLS = {"threefry_split_chain": ("split_chain_kernel",),
-            "fused_mix_mh_rounds": ("mh_rounds_kernel<",),
-            "chol_quadratics_lanes": ("chol_lanes_kernel<", ", false>"),
-            "chol_factors_lanes": ("chol_lanes_kernel<", ", true>"),
-            "chol_quadratics_smallk": ("smallk_kernel<", ", 0>"),
-            "fused_mix_quadratics_smallk": ("smallk_kernel<", ", 1>"),
-            "fused_mix_mh_round": ("smallk_kernel<", ", 2>"),
-            "fused_mix_quadratics": ("gram_chol_kernel<",),
-            "chol_nll": ("chol_nll_kernel<",)}
+# each counted wrapper's kernels, by the demangled name the profiler gives
+# them: a name is the wrapper's when it holds every substring of one of
+# the wrapper's patterns
+_SYMBOLS = {"threefry_split_chain": (("split_chain_kernel",),),
+            "fused_mix_mh_rounds": (("mh_rounds_kernel<",),),
+            "chol_quadratics_lanes": (("chol_lanes_kernel<", ", false>"),),
+            "chol_factors_lanes": (("chol_lanes_kernel<", ", true>"),),
+            "chol_quadratics_smallk": (("chol_quad_tiles_kernel<",),
+                                       ("chol_quad_panel_kernel<",)),
+            "fused_mix_quadratics_smallk": (("smallk_kernel<", ", false>"),),
+            "fused_mix_mh_round": (("mh_round_cluster_kernel<",),
+                                   ("smallk_kernel<", ", true>")),
+            "fused_mix_quadratics": (("gram_chol_kernel<",),),
+            "chol_nll": (("chol_nll_kernel<",),)}
 
 
 def _device_profile(fn, reps, warm=True):
@@ -1722,7 +1813,7 @@ def _device_profile(fn, reps, warm=True):
 
 
 def _is_kernel(wrapper: str, name: str) -> bool:
-    return all(s in name for s in _SYMBOLS[wrapper])
+    return any(all(s in name for s in pat) for pat in _SYMBOLS[wrapper])
 
 
 def _of_kernel(wrapper: str, by_name) -> tuple:
@@ -1760,15 +1851,16 @@ def _kernel_ms(wrapper: str, fn, reps, call_ms):
     return call_ms, "per call (CUDA events; profiler records lost)"
 
 
-def _library_ms(fn, reps, call_ms):
+def _library_ms(fn, reps, call_ms, tries=3):
     """(ms, how) for a library route: its device time per call under the
-    profiler when no record was lost (`_lost`); else the CUDA-event time
-    per call `call_ms`."""
-    by_name, launched = _device_profile(fn, reps)
-    lost = _lost(by_name, launched, reps)
-    if by_name and not lost:
-        return sum(v[0] for v in by_name.values()), "on the device"
-    log(f"[6] library route: profiler records lost ({'; '.join(lost)})")
+    profiler when no record was lost (`_lost`), in one of `tries` windows;
+    else the CUDA-event time per call `call_ms`."""
+    for _ in range(tries):
+        by_name, launched = _device_profile(fn, reps)
+        lost = _lost(by_name, launched, reps)
+        if by_name and not lost:
+            return sum(v[0] for v in by_name.values()), "on the device"
+        log(f"[6] library route: profiler records lost ({'; '.join(lost)})")
     return call_ms, "per call (CUDA events; profiler records lost)"
 
 
@@ -1947,17 +2039,20 @@ def phase_timing(fit):
 
 
 def _smallk_timing():
-    """K5 at the 1-D round's shape (K = 4, n = 8, f64) and at n = 100 and
-    512 (f32); K6 and K7 at the bench's one-round shape (K = 4, n = 100,
-    d = 2, f32). Each: device and per-call time, the plain twin's time per
-    call, the library route (cholesky_ex + solve_triangular of [y, 1] on
-    the same K Grams, timed only) and the bound."""
+    """K5 at the 1-D round's shape (K = 4, n = 8, f64) and at n = 100, 256,
+    512 and 1024 (K = 4, f32); K6 and K7 at the bench's one-round shape
+    (K = 4, n = 100, d = 2, f32). Each: device and per-call time, the plain
+    twin's time per call, the library route (cholesky_ex +
+    solve_triangular of [y, 1] on the same K Grams, timed only) and the
+    bound."""
     from ccgp_tpu_torch.ops import chol_smallk
 
     out = {}
     for label, kk, n, dtype, j in (("1-D round", 4, 8, torch.float64, 1e-6),
                                    ("n=100", 4, 100, torch.float32, 1e-3),
-                                   ("n=512", 4, 512, torch.float32, 1e-3)):
+                                   ("n=256", 4, 256, torch.float32, 1e-3),
+                                   ("n=512", 4, 512, torch.float32, 1e-3),
+                                   ("n=1024", 4, 1024, torch.float32, 1e-3)):
         g, y = (torch.tensor(a, dtype=dtype, device="cuda")
                 for a in se_grams(kk, n, seed=n))
         fn = lambda: chol_smallk.chol_quadratics_smallk(g, y, jitter=j)  # noqa: E731
@@ -1969,7 +2064,10 @@ def _smallk_timing():
         lib_call = _cuda_ms(lib_fn, 20)
         lib, lib_how = _library_ms(lib_fn, 20, lib_call)
         bound = _lanes_bound(kk, n, g.element_size(), False)
-        log(f"[6] chol_quadratics_smallk {label} K={kk} n={n} {dtype}: "
+        cluster, blocks, _ = chol_smallk.smallk_layout(
+            "chol_quadratics_smallk", n, kk, dtype)
+        log(f"[6] chol_quadratics_smallk {label} K={kk} n={n} {dtype} "
+            f"({blocks} blocks, clusters of {cluster}): "
             f"kernel {k:.4f} ms {how} ({call:.4f} ms per call), plain "
             f"{p:.3f} ms per call, cholesky_ex+solve_triangular {lib:.4f} "
             f"ms {lib_how} ({lib_call:.4f} ms per call), bound "
@@ -2005,7 +2103,10 @@ def _smallk_timing():
         k, how = _kernel_ms(name, fn, 20, call)
         p = _cuda_ms(plain, 3)
         bound = _bound(nbytes, (vec, PEAK_VEC[elem]), (fact6, PEAK_OPS[elem]))
-        log(f"[6] {name} K={kk} n={n} d={d} f32: kernel {k:.4f} ms {how} "
+        cluster, blocks, _ = chol_smallk.smallk_layout(name, n, kk,
+                                                       torch.float32)
+        log(f"[6] {name} K={kk} n={n} d={d} f32 ({blocks} blocks, clusters "
+            f"of {cluster}): kernel {k:.4f} ms {how} "
             f"({call:.4f} ms per call), plain {p:.3f} ms per call, "
             f"cholesky_ex+solve_triangular of the same Grams {lib:.4f} ms "
             f"{lib_how} ({lib_call:.4f} ms per call), bound "

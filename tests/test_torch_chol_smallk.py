@@ -65,6 +65,60 @@ def test_k5_twin_matches_pallas(kk, n, jitter):
         close(got[k], ref[k])
 
 
+def _oracle_quads(g, y, jitter):
+    """logdet and the quadratics of each Gram's lower triangle (+ jitter
+    I) by a right-looking Cholesky with the [y, 1] solve fused in, in
+    np.longdouble (x87 extended, 64-bit mantissa on x86-64)."""
+    kk, n, _ = g.shape
+    out = {k: np.zeros(kk, np.longdouble)
+           for k in ("logdet", "qyy", "qoy", "qoo")}
+    for k in range(kk):
+        m = np.tril(g[k]).astype(np.longdouble)
+        m = m + np.tril(m, -1).T + jitter * np.eye(n, dtype=np.longdouble)
+        r = np.stack([y, np.ones(n)], 1).astype(np.longdouble)
+        w = np.zeros((n, 2), np.longdouble)
+        for j in range(n):
+            s = np.sqrt(m[j, j])
+            out["logdet"][k] += np.log(m[j, j])
+            lo = m[j + 1:, j] / s
+            w[j] = r[j] / s
+            m[j + 1:, j + 1:] -= np.outer(lo, lo)
+            r[j + 1:] -= np.outer(lo, w[j])
+        out["qyy"][k] = (w[:, 0] * w[:, 0]).sum()
+        out["qoy"][k] = (w[:, 0] * w[:, 1]).sum()
+        out["qoo"][k] = (w[:, 1] * w[:, 1]).sum()
+    return out
+
+
+def _rel_to(a, ref) -> float:
+    a, ref = np.asarray(a, np.longdouble), np.asarray(ref, np.longdouble)
+    return float((np.abs(a - ref) / np.maximum(1, np.abs(ref))).max())
+
+
+@pytest.mark.parametrize("n", [129, 200])
+def test_k5_twin_above_one_tile(n):
+    """Above one 128-wide tile JAX runs its blocked-Schur core
+    (`_chol_quad_core_multitile`) and the twin its right-looking loop.
+    At n = 129 the two agree within the file's 1e-10 (interpret mode,
+    ~16 s). At n = 200 they do not: on these Grams (theta e^2.5..e^4,
+    jitter 1e-6) kappa eps is above 1e-10, for JAX as for the twin, and
+    qoy reads ~2.4e-9 apart. There each quantity of the twin is held no
+    farther from a long-double oracle than JAX's is (~29 s): a port fault
+    would show as the twin drifting past JAX, conditioning as both
+    drifting alike."""
+    g, y = se_grams(2, n, seed=2 * n)
+    ref = j_k5(jnp.asarray(g), jnp.asarray(y), jitter=1e-6, interpret=True)
+    got = chol_smallk.chol_quadratics_smallk(t(g), t(y), jitter=1e-6)
+    if n <= 129:
+        for k in ref:
+            close(got[k], ref[k])
+        return
+    oracle = _oracle_quads(g, y, 1e-6)
+    for k in oracle:
+        assert (_rel_to(got[k].numpy(), oracle[k])
+                <= _rel_to(np.asarray(ref[k]), oracle[k])), k
+
+
 def test_k5_twin_nan_and_lower_triangle():
     """An indefinite member gives NaN quadratics on that member only; NaN
     above the diagonal changes nothing."""

@@ -12,7 +12,9 @@ in the same order with explicitly rounded arithmetic, so acceptance flags,
 consumed counts and NaN positions are equal, and records, factors and
 quadratics agree to 1e-4 (float32) and 1e-10 (float64) relative to
 max(1, |value|) — room for the math library's exp / log / rsqrt, which
-may differ from PyTorch's in the last place.
+may differ from PyTorch's in the last place. K5 and K7 are also held bit
+for bit on the shapes where their cores change (n = 127 / 128 / 129) and
+at the cluster core's sizes, as chip_smoke.py's phase 11 holds them.
 """
 import ctypes
 
@@ -318,6 +320,83 @@ def test_chol_quadratics_smallk_nan_on_the_same_members(cuda, dtype):
     _quads_equal(got, ref, _tol(dtype))
 
 
+def _equal_quads(got, ref):
+    return all(torch.equal(got[k].nan_to_num(), ref[k].nan_to_num())
+               for k in ref)
+
+
+@pytest.mark.parametrize("kk,n,dtype", [
+    (kk, n, dtype) for dtype in (torch.float32, torch.float64)
+    for kk in (1, 4, 16) for n in (8, 127, 128, 129, 256, 512)] + [
+    (4, 1024, torch.float32), (4, 1024, torch.float64)])
+def test_chol_quadratics_smallk_bit_equal(cuda, kk, n, dtype):
+    """K5 on both of its cores (register tiles up to n = 128, a cluster
+    per Gram beyond; n = 1024 f64 with its rows in the global workspace)
+    gives its twin's numbers bit for bit."""
+    g, y = _se_grams(kk, n, seed=kk * n)
+    g, y = (torch.tensor(a, dtype=dtype, device=cuda) for a in (g, y))
+    jitter = 1e-3 if dtype == torch.float32 else 1e-6
+    before = chol_smallk.chol_quadratics_smallk.launches
+    got = chol_smallk.chol_quadratics_smallk(g, y, jitter=jitter)
+    torch.cuda.synchronize()
+    assert chol_smallk.chol_quadratics_smallk.launches == before + 1
+    ref = chol_smallk.chol_quadratics_smallk_plain(g, y, jitter=jitter)
+    assert _equal_quads(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chol_quadratics_smallk_nan_above_one_tile(cuda, dtype):
+    """On the cluster core: NaN above the diagonal changes no output
+    (n = 300), and an indefinite member is NaN alone (n = 150)."""
+    g, y = _se_grams(4, 300, seed=3)
+    g, y = (torch.tensor(a, dtype=dtype, device=cuda) for a in (g, y))
+    iu = torch.triu_indices(300, 300, 1, device=cuda)
+    junk = g.clone()
+    junk[:, iu[0], iu[1]] = float("nan")
+    a = chol_smallk.chol_quadratics_smallk(g, y, jitter=1e-3)
+    b = chol_smallk.chol_quadratics_smallk(junk, y, jitter=1e-3)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    r = np.random.default_rng(5)
+    v = r.normal(size=(4, 150, 60))
+    shift = np.where(np.arange(4) % 2 == 1, -1e-2, 1e-2)
+    g = torch.tensor(v @ np.swapaxes(v, 1, 2) / 150 + shift[:, None, None]
+                     * np.eye(150), dtype=dtype, device=cuda)
+    y = torch.tensor(r.normal(size=150), dtype=dtype, device=cuda)
+    got = chol_smallk.chol_quadratics_smallk(g, y)
+    nan = ~torch.isfinite(got["logdet"])
+    assert torch.equal(nan.cpu(), torch.arange(4) % 2 == 1)
+    assert _equal_quads(got, chol_smallk.chol_quadratics_smallk_plain(g, y))
+
+
+def test_smallk_refused_launch_leaves_no_error(cuda):
+    """K5's entry point refuses what its cluster core cannot run at
+    n = 300 (K = 17, outside the envelope; K = 4 without the exchange
+    workspace the layout asks for): an error code comes back without a
+    launch, raises through `_build.check`, and the next launch is not
+    charged with it."""
+    lib = _build.library()
+    n = 300
+    g = torch.eye(n, dtype=torch.float32, device=cuda).expand(17, n, n)
+    g = g.contiguous()
+    y = torch.ones(n, dtype=torch.float32, device=cuda)
+    q = torch.empty((17, 4), dtype=torch.float32, device=cuda)
+    for kk in (17, 4):
+        code = lib.ccgp_chol_quad_smallk_f32(g.data_ptr(), y.data_ptr(),
+                                             q.data_ptr(), None, n, kk, 0.0,
+                                             _build.stream(g.device))
+        assert code != 0
+        with pytest.raises(RuntimeError):
+            _build.check(code, "chol_quadratics_smallk")
+    g2, y2 = _se_grams(4, n, seed=1)
+    g2, y2 = (torch.tensor(a, dtype=torch.float32, device=cuda)
+              for a in (g2, y2))
+    got = chol_smallk.chol_quadratics_smallk(g2, y2, jitter=1e-3)
+    torch.cuda.synchronize()
+    assert _equal_quads(got, chol_smallk.chol_quadratics_smallk_plain(
+        g2, y2, jitter=1e-3))
+
+
 def _mix_case(kk, n, d, dtype, cuda, seed, indefinite=False):
     r = np.random.default_rng(seed)
     x = r.uniform(size=(n, d))
@@ -396,6 +475,41 @@ def test_fused_mix_kernels_nan_on_the_same_members(cuda, dtype):
         lp_beta=t(0.0), log_u=t(np.r_[np.inf, np.full(kk - 1, -1.0)]))
     assert bool(z[3]) and int(z[4]) == 3      # member 1 is NaN, 2 is taken
     assert torch.equal(z[0].cpu(), torch.tensor([4.0, 5.0], dtype=dtype))
+
+
+@pytest.mark.parametrize("kk,n,dtype", [
+    (4, 8, torch.float64),
+    (4, 100, torch.float32),      # the bench's one-round shape
+    (16, 100, torch.float64),     # two candidates per block
+    (5, 128, torch.float32),
+    (16, 128, torch.float64),
+    (16, 256, torch.float32),     # beyond one tile: one block for all K
+])
+def test_mh_round_bit_equal_for_every_consumed(cuda, kk, n, dtype):
+    """K7 gives its twin's outputs bit for bit whichever member is taken
+    first (consumed 1..K) and when none is (consumed K, lp_val kept)."""
+    args, r = _mix_case(kk, n, 2, dtype, cuda, seed=n + kk)
+    jitter = 1e-3 if dtype == torch.float32 else 1e-8
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=cuda)
+
+    rnd = dict(extra=t(r.normal(size=kk)), log_scale=t(r.normal(size=kk)),
+               cands=t(r.normal(size=(kk, 4))), lp_beta=t(0.3))
+    order = np.arange(kk)
+    trials = [(t(-1e6), t(np.where(order < m, np.inf, -np.inf)), m + 1)
+              for m in range(kk)]
+    trials.append((t(1e6), t(np.log(r.uniform(size=kk))), kk))
+    for lp_val, log_u, consumed in trials:
+        got = chol_smallk.fused_mix_mh_round(**args, **rnd, lp_val=lp_val,
+                                             log_u=log_u, jitter=jitter)
+        torch.cuda.synchronize()
+        ref = chol_smallk.fused_mix_mh_round_plain(
+            **args, **rnd, lp_val=lp_val, log_u=log_u, jitter=jitter)
+        assert int(got[4]) == int(ref[4]) == consumed
+        assert bool(got[3]) == bool(ref[3])
+        for a, b in zip(got[:3], ref[:3]):
+            assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
