@@ -1,12 +1,12 @@
 // chol_core.cuh: the packed-triangle factorization core
 // (`factor_quadratics`), one block for all of a launch's matrices with a
-// block barrier per pivot. It serves K6 (csrc/chol_smallk.cu, every n),
-// K7 beyond n = 128 (csrc/chol_smallk.cu), K8 (csrc/gram_chol.cu) and K1
-// beyond n = 128 (csrc/mh_rounds.cu, per block of its cluster). Beside it:
-// the arithmetic `Ar`, the SE-mixture Gram build (K1, K6, K7, K8) and the
-// log-posterior and first-acceptance scan (K1, K7). K1, K5 and K7 at
-// n <= 128 run the register-tile core of csrc/tile_core.cuh, and K5
-// beyond 128 its panel core in csrc/chol_smallk.cu, on the same
+// block barrier per pivot. It serves K7 beyond n = 128
+// (csrc/chol_smallk.cu) and K1 beyond n = 128 (csrc/mh_rounds.cu, per
+// block of its cluster). Beside it: the arithmetic `Ar`, the SE-mixture
+// entry (`se_mix_corr`; K1, K6, K7, K8) and Gram build (K1 and K7 beyond
+// 128), and the log-posterior and first-acceptance scan (K1, K7). K1 and
+// K5-K8 at n <= 128 run the register-tile core of csrc/tile_core.cuh, and
+// K5 and K6 beyond 128 the panel core in csrc/chol_smallk.cu, on the same
 // arithmetic.
 //
 // K symmetric n x n matrices, each stored as its packed upper triangle
@@ -223,21 +223,16 @@ __device__ __forceinline__ T se_mix_corr(const T* __restrict__ x, int i,
 //   R = (w1 exp(-sum_a r1_a dx_a^2) + w2 exp(-sum_a r2_a dx_a^2)) / wsum
 //       (+ jitter on the diagonal),
 // w1 = p^2, w2 = (1-p)^2, wsum = w1 + w2, the sums accumulated axis by axis
-// (`_se_mix_gram_plain` in ops/chol_smallk.py). With `scale` and `shift`
-// (K each; csrc/gram_chol.cu, K8) each entry becomes scale R + shift before
-// the jitter: a covariance such as the EB scan's sigma2_t R + tau^2 J. A
-// warp per matrix row. Every thread of the block must call it once r1, r2,
-// w1, w2, wsum (and scale, shift) are visible; the caller syncs the block
-// before it factors.
+// (`_se_mix_gram_plain` in ops/chol_smallk.py). A warp per matrix row.
+// Every thread of the block must call it once r1, r2, w1, w2 and wsum are
+// visible; the caller syncs the block before it factors.
 template <typename T>
 __device__ void build_se_mix_grams(const Factors<T>& f,
                                    const T* __restrict__ x,
                                    const T* __restrict__ y,
                                    const T (*r1)[MAX_D], const T (*r2)[MAX_D],
                                    const T* w1, const T* w2, const T* wsum,
-                                   int n, int d, int K, T jitter,
-                                   const T* scale = nullptr,
-                                   const T* shift = nullptr) {
+                                   int n, int d, int K, T jitter) {
   using A = Ar<T>;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -247,7 +242,6 @@ __device__ void build_se_mix_grams(const Factors<T>& f,
     T* Mi = f.M + (size_t)k * nn + rowbase(i, n);
     for (int c = i + lane; c < n; c += 32) {
       T v = se_mix_corr<T>(x, i, c, d, r1[k], r2[k], w1[k], w2[k], wsum[k]);
-      if (scale) v = A::add(A::mul(scale[k], v), shift[k]);
       if (c == i && jitter != T(0)) v = A::add(v, jitter);
       Mi[c] = v;
     }

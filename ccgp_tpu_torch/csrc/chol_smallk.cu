@@ -34,24 +34,29 @@
 // pivots per matrix; at the 1-D models' shape, n = 8, K = 4, a few hundred
 // operations). So the designs spread the matrices over SMs and shorten the
 // pivot step. Which kernel runs which core (`layout`, the one place it is
-// decided; the wrapper reads it through `ccgp_smallk_layout`):
-//   - K5, n <= 128: `chol_quad_tiles_kernel`, a grid of K independent
-//     blocks, block k on Gram k with the register-tile core of
-//     csrc/tile_core.cuh (`factor_tiles` on `GramSource`, one 4 x 4 tile of
-//     [G | y | 1] per thread, an mbarrier per row instead of a block
-//     barrier per pivot). The block has the fewest threads, a power of two
-//     from 32, that hold the tiles: one warp at n = 8 (5 tiles).
-//   - K5, 128 < n <= 1024: `chol_quad_panel_kernel`, a grid of K clusters
-//     of C blocks (16, or 8 for K > 8 so that the clusters fit the card's
-//     132 SMs at once), cluster k on Gram k: a
+// decided; the wrapper reads it through `ccgp_smallk_layout`). K5 and K6
+// differ only in where an entry comes from, so they share one layout and
+// two kernels templated on the source (`GramSource` for K5, `SeMixSource`
+// for K6; the demangled names tell them apart):
+//   - K5 and K6, n <= 128: `chol_quad_tiles_kernel`, a grid of K
+//     independent blocks, block k on matrix k with the register-tile core
+//     of csrc/tile_core.cuh (`factor_tiles`, one 4 x 4 tile of [M | y | 1]
+//     per thread, an mbarrier per row instead of a block barrier per
+//     pivot). The block has the fewest threads, a power of two from 32,
+//     that hold the tiles (`tile_block`): one warp at n = 8 (5 tiles). K6's
+//     block first stages its candidate's rates and weights in shared
+//     memory.
+//   - K5 and K6, 128 < n <= 1024: `chol_quad_panel_kernel`, a grid of K
+//     clusters of C blocks (16, or 8 for K > 8 so that the clusters fit the
+//     card's 132 SMs at once), cluster k on matrix k: a
 //     panel-blocked right-looking factorization over the cluster's shared
-//     memory. The augmented upper triangle [G | y | 1] is split across the
+//     memory. The augmented upper triangle [M | y | 1] is split across the
 //     C blocks in panels of b rows (b = 8, or 4 where 8 does not fit),
 //     dealt out in snake order (0..C-1, C-1..0, ...) so that the blocks
 //     hold about as much (C and b from the sweep
-//     `chip_smoke.k5_panel_sizes`). The panel's owner factors its b pivots
-//     alone (one thread the b x b diagonal block, then a thread per column)
-//     and
+//     `chip_smoke.k5_panel_sizes`); each block builds its own rows from the
+//     source. The panel's owner factors its b pivots alone (one thread the
+//     b x b diagonal block, then a thread per column) and
 //     writes the b scaled rows to its shared memory and to an exchange
 //     buffer in global memory (L2), both double-buffered by panel parity;
 //     the cluster meets at ONE barrier per panel, split into arrive and
@@ -70,10 +75,10 @@
 //     p; each block publishes (val, beta) of its candidates, the cluster
 //     meets at one barrier, and rank 0 reads the K pairs through
 //     distributed shared memory and runs the scan.
-//   - K6 (every n) and K7 at 128 < n <= 256: `smallk_kernel`, ONE block
-//     for all K matrices on `factor_quadratics` of csrc/chol_core.cuh
-//     (packed triangles, one block barrier per pivot), its workspace in
-//     shared memory when it fits, else in the wrapper's global workspace.
+//   - K7 at 128 < n <= 256: `smallk_kernel`, ONE block for all K matrices
+//     on `factor_quadratics` of csrc/chol_core.cuh (packed triangles, one
+//     block barrier per pivot), its workspace in shared memory when it
+//     fits, else in the wrapper's global workspace.
 //
 // Arithmetic: explicitly rounded intrinsics in the order of the plain
 // PyTorch twins in ops/chol_smallk.py (see csrc/chol_core.cuh): every
@@ -180,13 +185,6 @@ struct Layout {
   size_t ws_elems;  // global workspace the wrapper allocates (0: none)
 };
 
-// The fewest threads, a power of two from 32, that hold the tiles.
-inline int tile_block(int tiles) {
-  int nt = 32;
-  while (nt < tiles) nt *= 2;
-  return nt;
-}
-
 // The panel core's block size: 1024 threads in f32, 512 in f64 (at 1024 a
 // thread has 64 registers, fewer than an f64 4 x 4 tile and its pivots'
 // rows take).
@@ -214,15 +212,21 @@ inline void panel_sizes(int n, int C, int b, int elem, bool rows_in_smem,
                   3LL * lrows) * elem;
 }
 
+// K6's staged rates and weights in a tiles block's shared memory: r1 and
+// r2 (MAX_D each), w1 = p^2, w2 = (1 - p)^2 and w1 + w2
+constexpr int MIX_STAGE = 2 * MAX_D + 3;
+
 inline Layout layout(int which, int n, int K, int elem) {
   Layout l = {};
-  if (which == K5_QUAD && n <= TILE) {
+  const bool quad = which == K5_QUAD || which == K6_MIX;
+  if (quad && n <= TILE) {
     l.core = CORE_TILES;
     l.C = 1;
     l.grid = K;
     l.threads = tile_block(reg_tiles(n));
-    l.smem = (size_t)(aug_row_off(n, n) + n) * elem;
-  } else if (which == K5_QUAD) {
+    l.smem = (size_t)(aug_row_off(n, n) + n +
+                      (which == K6_MIX ? MIX_STAGE : 0)) * elem;
+  } else if (quad) {
 #ifdef CCGP_K5_PANEL_C
     // a sweep's own build (chip_smoke.k5_panel_sizes)
     l.C = CCGP_K5_PANEL_C;
@@ -274,23 +278,84 @@ inline Layout layout(int which, int n, int K, int elem) {
 }
 
 // ---------------------------------------------------------------------------
-// K5, n <= 128: a block per Gram on the register-tile core
+// where matrix k's entries come from (K5: Gram k; K6: candidate k's SE
+// mixture built from x)
 // ---------------------------------------------------------------------------
 
-template <typename T, int NTB>
+// SmallkSource<Src>: stage(a, k, st) puts what the source keeps in shared
+// memory at st (the room `layout` gives it: none for K5, MIX_STAGE values
+// for K6; every thread of the block calls it, and the block syncs before
+// the source is read); of(a, k, st) is the source, from what stage left at
+// st, or, with st null, from the arguments in global memory. The panel
+// core takes the latter: K6's rates would not fit beside its static arrays
+// (PANEL_STATIC) without changing the layout K5 and K6 share, and each of
+// its entries is built once.
+template <typename Src>
+struct SmallkSource;
+
+template <typename T>
+struct SmallkSource<GramSource<T>> {
+  __device__ static void stage(const SmallkArgs<T>&, int, T*) {}
+  __device__ static GramSource<T> of(const SmallkArgs<T>& a, int k,
+                                     const T*) {
+    return GramSource<T>{a.grams + (size_t)k * a.n * a.n, a.n, a.jitter};
+  }
+};
+
+template <typename T>
+struct SmallkSource<SeMixSource<T>> {
+  // w1 = p^2, w2 = (1 - p)^2 and w1 + w2, as K7 and the twin compute them
+  __device__ static void weights(T pk, T* w) {
+    using A = Ar<T>;
+    const T qk = A::sub(T(1), pk);
+    w[0] = A::mul(pk, pk);
+    w[1] = A::mul(qk, qk);
+    w[2] = A::add(w[0], w[1]);
+  }
+  __device__ static void stage(const SmallkArgs<T>& a, int k, T* st) {
+    for (int c = threadIdx.x; c < a.d; c += blockDim.x) {
+      st[c] = a.r1[(size_t)k * a.d + c];
+      st[MAX_D + c] = a.r2[(size_t)k * a.d + c];
+    }
+    if (threadIdx.x == 0) weights(a.p[k], st + 2 * MAX_D);
+  }
+  __device__ static SeMixSource<T> of(const SmallkArgs<T>& a, int k,
+                                      const T* st) {
+    if (st != nullptr) {
+      const T* w = st + 2 * MAX_D;
+      return SeMixSource<T>{a.x,  st,   st + MAX_D, w[0],
+                            w[1], w[2], a.jitter,   a.d};
+    }
+    T w[3];
+    weights(a.p[k], w);
+    return SeMixSource<T>{a.x,  a.r1 + (size_t)k * a.d,
+                          a.r2 + (size_t)k * a.d,
+                          w[0], w[1], w[2], a.jitter, a.d};
+  }
+};
+
+// ---------------------------------------------------------------------------
+// K5 and K6, n <= 128: a block per matrix on the register-tile core
+// ---------------------------------------------------------------------------
+
+template <typename T, int NTB, typename Src>
 __global__ void __launch_bounds__(NTB)
     chol_quad_tiles_kernel(const SmallkArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   using A = Ar<T>;
+  using S = SmallkSource<Src>;
   __shared__ __align__(8) uint64_t s_bar[TILE];
   const int n = a.n, k = blockIdx.x, tid = threadIdx.x;
+  // the scaled rows, the pivots, then what the source stages
   T* const L = (T*)smem_raw;
   T* const D = L + aug_row_off(n, n);
+  T* const st = D + n;
   int ta, tb;
   tile_of(tid, n, ta, tb);
   init_row_bars(s_bar, n, NTB);
+  S::stage(a, k, st);
   __syncthreads();
-  const GramSource<T> src{a.grams + (size_t)k * n * n, n, a.jitter};
+  const Src src = S::of(a, k, st);
   factor_tiles<T>(L, D, smem_addr(s_bar), 0, ta, tb, src, a.y, n);
   for (int j = tid; j < n; j += NTB) D[j] = A::log_(D[j]);
   __syncthreads();
@@ -301,12 +366,13 @@ __global__ void __launch_bounds__(NTB)
 }
 
 // ---------------------------------------------------------------------------
-// K5, 128 < n <= 1024: a cluster per Gram, panels over its shared memory
+// K5 and K6, 128 < n <= 1024: a cluster per matrix, panels over its shared
+// memory
 // ---------------------------------------------------------------------------
 
 constexpr int PANEL_MAX_B = 8;   // rows per panel, at most
 
-// The panel core's view of one block: its rows of [G | y | 1] (row tile by
+// The panel core's view of one block: its rows of [M | y | 1] (row tile by
 // row tile, `s_off`), the two panel buffers and its pivots' (d_j, L_j[n],
 // L_j[n + 1]).
 template <typename T>
@@ -422,7 +488,7 @@ struct PanelBlock {
   }
 };
 
-template <typename T, int NTB, bool GROWS>
+template <typename T, int NTB, bool GROWS, typename Src>
 __global__ void __launch_bounds__(NTB)
     chol_quad_panel_kernel(const SmallkArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -433,7 +499,7 @@ __global__ void __launch_bounds__(NTB)
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int k = blockIdx.x / C;   // this cluster's Gram
+  const int k = blockIdx.x / C;   // this cluster's matrix
   const int tid = threadIdx.x;
   const int n = a.n, b = a.b, tb = b / TQ;
   const int ntc = col_tiles(n), W = TQ * ntc;
@@ -454,12 +520,14 @@ __global__ void __launch_bounds__(NTB)
     s_off[lt] = (int)local_tile_off(lt, tb, C, rank, ntc);
   __syncthreads();
 
-  // the rows of [G | y | 1] from the Gram's lower triangle: M[i][c] =
-  // G[c][i] (c >= i), jitter on the diagonal, y and 1 in columns n, n + 1;
-  // zeros left of the diagonal, beyond n + 1 and in rows past n. Local rows
-  // run fastest, so a warp reads runs of b neighbours of a Gram row.
+  // the rows of [M | y | 1] from the source: M[i][c] (c >= i, jitter on
+  // the diagonal; K5 reads G[c][i] of the Gram's lower triangle, K6 builds
+  // the entry from x and the rates in global memory), y and 1 in columns
+  // n, n + 1; zeros left of the diagonal, beyond n + 1 and in rows past n.
+  // Local rows run fastest, so a warp of K5 reads runs of b neighbours of a
+  // Gram row.
   {
-    const T* g = a.grams + (size_t)k * n * n;
+    const Src src = SmallkSource<Src>::of(a, k, nullptr);
     const int R = TQ * nlt;
     for (int e = tid; e < R * W; e += NTB) {
       const int c = e / R, lr = e - c * R;
@@ -469,8 +537,7 @@ __global__ void __launch_bounds__(NTB)
       T v = T(0);
       if (i < n && c >= i) {
         if (c < n) {
-          v = g[(size_t)c * n + i];
-          if (c == i && a.jitter != T(0)) v = A::add(v, a.jitter);
+          v = src.entry(i, c);
         } else if (c == n) {
           v = a.y[i];
         } else if (c == n + 1) {
@@ -656,10 +723,10 @@ __global__ void __launch_bounds__(NTB)
 }
 
 // ---------------------------------------------------------------------------
-// K6 (every n) and K7 (128 < n <= 256): one block for all K matrices
+// K7, 128 < n <= 256: one block for all K matrices
 // ---------------------------------------------------------------------------
 
-template <typename T, bool SMEM, bool ROUND>
+template <typename T, bool SMEM>
 __global__ void __launch_bounds__(NT) smallk_kernel(const SmallkArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   using A = Ar<T>;
@@ -694,17 +761,7 @@ __global__ void __launch_bounds__(NT) smallk_kernel(const SmallkArgs<T> a) {
 
   factor_quadratics<T>(f, n, K);
 
-  if (!ROUND) {
-    if (tid < K) {
-      T* o = a.q + (size_t)tid * 4;
-      o[0] = s_ld[tid];
-      o[1] = s_qyy[tid];
-      o[2] = s_qoy[tid];
-      o[3] = s_qoo[tid];
-    }
-    return;
-  }
-  // K7: log-posteriors and the first-acceptance scan
+  // log-posteriors and the first-acceptance scan
   if (tid == 0) {
     T val_sel = a.st[0], beta_sel = a.st[1];
     const int sel = logpost_first_acceptance<T>(
@@ -726,41 +783,26 @@ __global__ void __launch_bounds__(NT) smallk_kernel(const SmallkArgs<T> a) {
 // launches
 // ---------------------------------------------------------------------------
 
-// A plain launch of `kern` with `smem` bytes of dynamic shared memory
-// (opted in above 48 KB); returns the first error.
-template <typename T>
-cudaError_t launch_plain(void (*kern)(SmallkArgs<T>), const SmallkArgs<T>& a,
-                         int grid, int threads, size_t smem, cudaStream_t s) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kern<<<grid, threads, smem, s>>>(a);
-  return cudaSuccess;
-}
-
-template <typename T>
+template <typename T, typename Src>
 cudaError_t launch_tiles(const SmallkArgs<T>& a, const Layout& l,
                          cudaStream_t s) {
-  switch (l.threads) {
-    case 32:
-      return launch_plain(chol_quad_tiles_kernel<T, 32>, a, l.grid, 32,
-                          l.smem, s);
-    case 64:
-      return launch_plain(chol_quad_tiles_kernel<T, 64>, a, l.grid, 64,
-                          l.smem, s);
-    case 128:
-      return launch_plain(chol_quad_tiles_kernel<T, 128>, a, l.grid, 128,
-                          l.smem, s);
-    case 256:
-      return launch_plain(chol_quad_tiles_kernel<T, 256>, a, l.grid, 256,
-                          l.smem, s);
-    case 512:
-      return launch_plain(chol_quad_tiles_kernel<T, 512>, a, l.grid, 512,
-                          l.smem, s);
-    default:
-      return launch_plain(chol_quad_tiles_kernel<T, 1024>, a, l.grid, 1024,
-                          l.smem, s);
-  }
+  return with_tile_block(l.threads, [&](auto nt) {
+    constexpr int NTB = decltype(nt)::value;
+    return launch_plain(chol_quad_tiles_kernel<T, NTB, Src>, a, l.grid, NTB,
+                        l.smem, s);
+  });
+}
+
+template <typename T, typename Src>
+cudaError_t launch_panel(const SmallkArgs<T>& a, const Layout& l,
+                         cudaStream_t s) {
+  constexpr int PT = panel_threads<T>();
+  if (a.ws == nullptr) return cudaErrorInvalidValue;
+  return l.core == CORE_PANEL_SMEM
+             ? launch_cluster(chol_quad_panel_kernel<T, PT, false, Src>, a,
+                              l.C, a.K, PT, l.smem, s)
+             : launch_cluster(chol_quad_panel_kernel<T, PT, true, Src>, a,
+                              l.C, a.K, PT, l.smem, s);
 }
 
 template <typename T>
@@ -777,20 +819,16 @@ int launch(int which, SmallkArgs<T> a, double jitter, void* stream) {
   a.b = l.b;
   a.rows_max = l.rows_max;
   cudaStream_t s = (cudaStream_t)stream;
-  constexpr int PT = panel_threads<T>();
   cudaError_t err;
   switch (l.core) {
     case CORE_TILES:
-      err = launch_tiles<T>(a, l, s);
+      err = which == K5_QUAD ? launch_tiles<T, GramSource<T>>(a, l, s)
+                             : launch_tiles<T, SeMixSource<T>>(a, l, s);
       break;
     case CORE_PANEL_SMEM:
     case CORE_PANEL_GLOBAL:
-      err = a.ws == nullptr ? cudaErrorInvalidValue
-            : l.core == CORE_PANEL_SMEM
-                ? launch_cluster(chol_quad_panel_kernel<T, PT, false>, a,
-                                 l.C, a.K, PT, l.smem, s)
-                : launch_cluster(chol_quad_panel_kernel<T, PT, true>, a, l.C,
-                                 a.K, PT, l.smem, s);
+      err = which == K5_QUAD ? launch_panel<T, GramSource<T>>(a, l, s)
+                             : launch_panel<T, SeMixSource<T>>(a, l, s);
       break;
     case CORE_ROUND_CLUSTER:
       err = l.threads == 1024
@@ -801,13 +839,8 @@ int launch(int which, SmallkArgs<T> a, double jitter, void* stream) {
       break;
     default:
       return launch_smem_or_global(
-          which == K7_ROUND ? smallk_kernel<T, true, true>
-                            : smallk_kernel<T, true, false>,
-          which == K7_ROUND ? smallk_kernel<T, false, true>
-                            : smallk_kernel<T, false, false>,
-          l.smem, [&](auto kern, size_t bytes) {
-            kern<<<1, NT, bytes, s>>>(a);
-          });
+          smallk_kernel<T, true>, smallk_kernel<T, false>, l.smem,
+          [&](auto kern, size_t bytes) { kern<<<1, NT, bytes, s>>>(a); });
   }
   return launch_result(err);
 }

@@ -1,8 +1,9 @@
 // tile_core.cuh: the register-tile factorization core for n <= 128, shared
-// by K1 (csrc/mh_rounds.cu, one candidate per block of a cluster), K5
-// (csrc/chol_smallk.cu, one Gram per block) and K7 (csrc/chol_smallk.cu,
-// one candidate per block of a cluster), and the cluster launch they and
-// K5's panel core (n > 128) share.
+// by K1 (csrc/mh_rounds.cu, one candidate per block of a cluster), K5 and
+// K6 (csrc/chol_smallk.cu, one Gram per block), K7 (csrc/chol_smallk.cu,
+// one candidate per block of a cluster) and K8 (csrc/gram_chol.cu, one
+// lane per block), and the launches they and K5's and K6's panel core
+// (n > 128) share.
 //
 // The core factors the AUGMENTED matrix [M | y | 1] of one n x n symmetric
 // matrix M: its forward solve of [y, 1] is the same downdate on columns n
@@ -23,7 +24,8 @@
 // Where a tile's entries come from is the template parameter `Src`, a
 // functor with entry(r, c) (r <= c < n, jitter on the diagonal included)
 // and diag(r): `SeMixSource` builds the SE-mixture correlation from x
-// (K1, K7), `GramSource` reads a materialized Gram's lower triangle (K5).
+// (K1, K6, K7), `ScaledSeMixSource` the covariance scale R + shift J from
+// it (K8), `GramSource` reads a materialized Gram's lower triangle (K5).
 //
 // Arithmetic: explicitly rounded intrinsics in the order of the plain
 // PyTorch twin (`_factor_plain` in ops/chol_smallk.py), as in
@@ -32,6 +34,8 @@
 
 #include <cooperative_groups.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "chol_core.cuh"
 
@@ -168,6 +172,15 @@ inline int reg_threads(int tiles) {
   return sizeof(T) == 4 || tiles > 512 ? 1024 : 512;
 }
 
+// The block size of a kernel with one matrix per block on the register-
+// tile core (K5, K6, K8): the fewest threads, a power of two from 32, that
+// hold the tiles (one warp at n = 8 and at n = 14).
+inline int tile_block(int tiles) {
+  int nt = 32;
+  while (nt < tiles) nt *= 2;
+  return nt;
+}
+
 // bar[j] completes when every tile of row j has published its part; call
 // once before the first factorization, then sync the block.
 __device__ __forceinline__ void init_row_bars(uint64_t* bar, int n, int nt) {
@@ -175,7 +188,7 @@ __device__ __forceinline__ void init_row_bars(uint64_t* bar, int n, int nt) {
     mbar_init(smem_addr(&bar[j]), col_tiles(n) - j / TQ);
 }
 
-// The SE-mixture correlation built from x (K1, K7):
+// The SE-mixture correlation built from x (K1, K6, K7):
 //   (w1 exp(-sum_a r1_a dx_a^2) + w2 exp(-sum_a r2_a dx_a^2)) / wsum
 //   (+ jitter on the diagonal).
 template <typename T>
@@ -189,6 +202,28 @@ struct SeMixSource {
   __device__ __forceinline__ T entry(int r, int c) const {
     T v = se_mix_corr<T>(x, r, c, d, r1, r2, w1, w2, wsum);
     if (c == r && jitter != T(0)) v = Ar<T>::add(v, jitter);
+    return v;
+  }
+  __device__ __forceinline__ T diag(int r) const { return entry(r, r); }
+};
+
+// The covariance scale R + shift J (+ jitter on the diagonal) of the
+// SE-mixture correlation R (K8): each entry scaled and shifted before the
+// jitter, as the plain twin (`fused_mix_quadratics_plain` in
+// ops/gram_chol.py) does.
+template <typename T>
+struct ScaledSeMixSource {
+  const T* __restrict__ x;
+  const T* r1;
+  const T* r2;
+  T w1, w2, wsum, scale, shift, jitter;
+  int d;
+
+  __device__ __forceinline__ T entry(int r, int c) const {
+    using A = Ar<T>;
+    T v = se_mix_corr<T>(x, r, c, d, r1, r2, w1, w2, wsum);
+    v = A::add(A::mul(scale, v), shift);
+    if (c == r && jitter != T(0)) v = A::add(v, jitter);
     return v;
   }
   __device__ __forceinline__ T diag(int r) const { return entry(r, r); }
@@ -322,6 +357,34 @@ __device__ __forceinline__ void tile_quadratics(T* L, const T* lg, int n,
     qyy = A::add(qyy, A::mul(wy, wy));
     qoy = A::add(qoy, A::mul(wy, wo));
     qoo = A::add(qoo, A::mul(wo, wo));
+  }
+}
+
+// A plain launch of `kern` as `grid` blocks of `threads` threads with `smem`
+// bytes of dynamic shared memory (opted in above 48 KB); returns the first
+// error.
+template <typename Args>
+cudaError_t launch_plain(void (*kern)(Args), const Args& a, int grid,
+                         int threads, size_t smem, cudaStream_t s) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, threads, smem, s>>>(a);
+  return cudaSuccess;
+}
+
+// f(std::integral_constant<int, NTB>) for the block size `threads`
+// (`tile_block`: 32, 64, .., 1024), so that a launch can pick the kernel
+// instantiated for its block size.
+template <typename F>
+cudaError_t with_tile_block(int threads, F&& f) {
+  switch (threads) {
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    case 512: return f(std::integral_constant<int, 512>{});
+    default: return f(std::integral_constant<int, 1024>{});
   }
 }
 

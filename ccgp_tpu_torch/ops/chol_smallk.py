@@ -1,10 +1,10 @@
 """The small-K latency kernels (port of
 `ccgp_tpu/ops/pallas_chol_smallk.py`): K <= 16 matrices factored in one
 launch, each a right-looking Cholesky with the forward solve of [y, 1]
-fused in and logdet and the quadratics accumulated in pivot order (K1, K5
-and K7 at n <= 128 on the register-tile core `csrc/tile_core.cuh`; K5
-beyond on a panel core over a thread-block cluster; K6, K7 beyond 128 and
-K1 beyond 128 on `csrc/chol_core.cuh`). Four wrappers, each with its plain
+fused in and logdet and the quadratics accumulated in pivot order (K1 and
+K5-K7 at n <= 128 on the register-tile core `csrc/tile_core.cuh`; K5 and
+K6 beyond on a panel core over a thread-block cluster; K7 and K1 beyond
+128 on `csrc/chol_core.cuh`). Four wrappers, each with its plain
 PyTorch twin (the same operations in the same order) and a launch counter:
 
   chol_quadratics_smallk       K5  {logdet, qyy, qoy, qoo} of K
@@ -27,11 +27,12 @@ log-posterior; then the first-acceptance scan (a NaN log-posterior
 compares False and so rejects) and the state carry.
 
 On a CUDA tensor each wrapper launches its kernel (`smallk_layout` and
-`rounds_layout` say how): K5 a block per Gram up to n = 128 and a cluster
-of 8 or 16 blocks per Gram beyond; K7 up to n = 128 one cluster of
-min(K, 8) blocks, a block per candidate; K6, and K7 beyond 128, one
-thread block for all K matrices; K1 one cluster of min(K, 8) blocks for
-all R rounds, each block factoring its own candidates. On a CPU tensor it
+`rounds_layout` say how): K5 and K6 (one layout) a block per matrix up to
+n = 128 and a cluster of 8 or 16 blocks per matrix beyond; K7 up to
+n = 128 one cluster of min(K, 8) blocks, a block per candidate, and
+beyond 128 one thread block for all K matrices; K1 one cluster of
+min(K, 8) blocks for all R rounds, each block factoring its own
+candidates. On a CPU tensor it
 runs its twin. A non-PD matrix gives NaN quadratics, never an exception.
 
 The stash layout is the port's own: (R, n+2, n), row j < n holding
@@ -442,8 +443,8 @@ def smallk_layout(kernel: str, n: int, k: int,
                   dtype) -> tuple[int, int, int]:
     """K5's, K6's or K7's launch for n and K as `csrc/chol_smallk.cu` lays
     it out: (thread blocks per cluster, 1 for none; thread blocks in all;
-    elements of the global workspace it takes, 0 for none). Needs the
-    kernel library."""
+    elements of the global workspace it takes, 0 for none). K5 and K6 take
+    the same layout. Needs the kernel library."""
     cluster, blocks = ctypes.c_int(), ctypes.c_int()
     elems = ctypes.c_longlong()
     elem = torch.empty((), dtype=dtype).element_size()
@@ -515,7 +516,8 @@ def fused_mix_quadratics_smallk(x, y, r1, r2, p, jitter=0.0) -> dict:
     R_k = (p_k^2 e^{-D1_k} + (1-p_k)^2 e^{-D2_k}) / (p_k^2 + (1-p_k)^2),
     D_i = sum_a r_i[k, a] (x_a - x'_a)^2, built in the kernel from x (n, d),
     r1, r2 (K, d) and p (K,). CUDA tensors launch `csrc/chol_smallk.cu`
-    (K6); CPU tensors take the plain version."""
+    (K6: K5's layout, a block per matrix up to n = 128, a cluster per
+    matrix beyond); CPU tensors take the plain version."""
     if _device_of(x) == "cpu":
         return fused_mix_quadratics_smallk_plain(x, y, r1, r2, p, jitter)
     _check_mix(x, y, r1, r2, p)

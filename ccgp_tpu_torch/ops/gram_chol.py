@@ -11,8 +11,9 @@ For each lane b of a batch, with w1 = p_b^2 and w2 = (1 - p_b)^2,
 and the summary {logdet, y'C^-1 y, 1'C^-1 y, 1'C^-1 1} of C. This covers
 every SE mixture the framework uses (isotropic, anisotropic, tied) and
 the EB covariance (scale = sigma2_t, shift = tau^2). On a CUDA tensor the
-wrapper launches `csrc/gram_chol.cu` (K8: one thread block per lane, the
-Gram built in shared memory and factored there); on a CPU tensor it runs
+wrapper launches `csrc/gram_chol.cu` (K8: one small thread block per
+lane on the register-tile core, each thread building and factoring one
+4 x 4 tile of the Gram in registers); on a CPU tensor it runs
 `fused_mix_quadratics_plain`, which performs the same operations in the
 same order. The JAX package has no caller of this kernel (its EB scan
 measured faster on materialized Grams); neither has the port.

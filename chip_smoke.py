@@ -27,12 +27,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      of bit-equal records: K5 (materialized Grams; register tiles up to
      n = 128, a cluster per Gram beyond) over K in {1, 4, 16} x n in {8,
      100, 127, 128, 129, 256, 512} and (4, 1024), K6 (in-kernel SE-mixture
-     Grams) and K7 (a whole speculative round: equal any_acc and consumed,
-     every member taken first in turn and none) over K in {4, 16} x n in
-     {8, 100, 256} x d in {1, 2, 9}, K in {4, 16} x n in {127, 128, 129},
-     (4, 20, 2) and (4, 100, 128), f32 and f64, plus indefinite batches
-     (n = 40 and 150) whose NaNs must fall on the same members, and NaN
-     above the diagonal for K5 (n = 100 and 300);
+     Grams, on K5's layout, logged per shape) and K7 (a whole speculative
+     round: equal any_acc and consumed, every member taken first in turn
+     and none) over K in {4, 16} x n in {8, 100, 256} x d in {1, 2, 9}, K
+     in {4, 16} x n in {127, 128, 129}, (4, 20, 2) and (4, 100, 128), K6
+     also at (4, 512, 2) and (4, 1024, 2), f32 and f64, plus indefinite
+     batches (K5 at n = 40 and 150, K6 at 30 and 150) whose NaNs must fall
+     on the same members, and NaN above the diagonal for K5 (n = 100 and
+     300);
   5. the full-Bayes path: `fit_combined_gp` -> `predict_combined_gp` at the
      bench workload (2-D anisotropic SE x SE, tied rough rates, n = 100,
      25 x 25 lattice, speculative K = 4, n_max 5000, samp_size 1000, f32,
@@ -51,11 +53,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      predictions that match phase 5's stash path;
   6. each kernel's time next to its plain version's and a library call's
      at the main paths' shapes (K5 at the 1-D round and at n = 100, 256,
-     512 and 1024, K6 and K7 at the bench's one-round shape, K8 at an EB
-     row and the MAP cloud, K9 at the MAP cloud): device time under
-     torch.profiler where it kept a record of every launch the wrapper
-     counted, else the CUDA-event time per call; K1's cluster size and
-     us/round;
+     512 and 1024, K6 and K7 at the bench's one-round shape, K6 at n = 256,
+     K8 at an EB row and the MAP cloud, K9 at the MAP cloud): device time
+     under torch.profiler where it kept a record of every launch the
+     wrapper counted, else the CUDA-event time per call; K1's cluster size
+     and us/round;
  12. the 1-D models at full width (n = 8, 50 points, f64, function 1 on
      the `random_lhs` design `sim_1d.run` draws from PRNGKey(0), the
      --fast MCMC budget): `sim_1d`'s Matern x Matern and
@@ -921,13 +923,17 @@ def phase_smallk():
             f"n = 100 and 300; indefinite batches at n = 40 and 150 are NaN "
             f"on their {int(nan.sum())} odd members in kernel and twin")
 
-        errs6, errs7, bit6, bit7, consumed = [], [], True, True, set()
+        errs6, errs7, nbit6, bit7, consumed = [], [], 0, True, set()
+        cores6 = {}
         cases = [(kk, n, d) for kk in (4, 16) for n in (8, 100, 256)
                  for d in (1, 2, 9)]
         # the edge of K7's cluster core, phase 13's small slice, and the
         # widest x the kernels hold
         cases += [(kk, n, 2) for kk in (4, 16) for n in (127, 128, 129)]
         cases += [(4, 20, 2), (4, 100, chol_smallk.MAX_D)]
+        # K6's panel core to the envelope's edge (rows in the global
+        # workspace at n = 1024 in f64); the gates send K7 n <= 256 only
+        cases += [(4, 512, 2), (4, 1024, 2)]
         for kk, n, d in cases:
             label = f"K={kk} n={n} d={d} {dtype}"
             args, rnd = mix_case(kk, n, d, dtype, seed=kk + n + d)
@@ -939,7 +945,11 @@ def phase_smallk():
             e, ae, eq = _compare_quads(got, ref, tol, "K6 " + label)
             errs6.append(e)
             abs6 = max(abs6, ae)
-            bit6 = bit6 and eq
+            nbit6 += eq
+            cores6[(kk, n)] = chol_smallk.smallk_layout(
+                "fused_mix_quadratics_smallk", n, kk, dtype)[:2]
+            if n > 256:
+                continue
             # lp_val thresholds that accept some, any or none; then each
             # member in turn taken first (log_u -inf there, +inf before it)
             rounds = [(t(lp), rnd["log_u"]) for lp in (-1e6, 0.0, 1e6)]
@@ -959,17 +969,25 @@ def phase_smallk():
             f"consumed seen {sorted(consumed)}) for K in {{4,16}} x n in "
             f"{{8,100,256}} x d in {{1,2,9}}, K in {{4,16}} x n in "
             f"{{127,128,129}} x d = 2, (4, 20, 2) and (4, 100, "
-            f"{chol_smallk.MAX_D}), {dtype}: max rel err "
+            f"{chol_smallk.MAX_D}); K6 also at (4, 512, 2) and (4, 1024, 2); "
+            f"{dtype}: max rel err "
             f"{max(errs6):.3g} / {max(errs7):.3g} (tol {tol:g}); "
-            f"bit-equal: {bit6} / {bit7}")
-        args, rnd = mix_case(8, 30, 2, dtype, seed=9, indefinite=True)
-        args["jitter"] = 1e-2
-        got = chol_smallk.fused_mix_quadratics_smallk(**args)
-        _compare_quads(got, chol_smallk.fused_mix_quadratics_smallk_plain(
-            **args), tol, f"K6 indefinite {dtype}")
-        nan = ~torch.isfinite(got["logdet"])
-        if not torch.equal(nan.cpu(), torch.arange(8) % 2 == 1):
-            raise AssertionError("K6: NaN on the wrong members")
+            f"bit-equal: K6 {nbit6} of {len(errs6)}, K7 {bit7}")
+        log(f"[11] K6 (cluster, blocks) per (K, n), {dtype}: "
+            + ", ".join(f"{kn}: {c}" for kn, c in sorted(cores6.items())))
+        # an indefinite batch on K6's panel core (n = 150) and on its
+        # register-tile core (n = 30, the batch K7 takes below)
+        eq6 = []
+        for n in (150, 30):
+            args, rnd = mix_case(8, n, 2, dtype, seed=9, indefinite=True)
+            args["jitter"] = 1e-2
+            got = chol_smallk.fused_mix_quadratics_smallk(**args)
+            eq6.append(_compare_quads(
+                got, chol_smallk.fused_mix_quadratics_smallk_plain(**args),
+                tol, f"K6 indefinite n={n} {dtype}")[2])
+            nan = ~torch.isfinite(got["logdet"])
+            if not torch.equal(nan.cpu(), torch.arange(8) % 2 == 1):
+                raise AssertionError(f"K6 n={n}: NaN on the wrong members")
         rnd.update(lp_val=t(-1e30), extra=t(np.zeros(8)),
                    log_scale=t(np.zeros(8)),
                    log_u=t(np.r_[np.inf, np.full(7, -1.0)]))
@@ -977,7 +995,8 @@ def phase_smallk():
         if c != 3:
             raise AssertionError("K7 took a NaN member or skipped member 2")
         log(f"[11] K6/K7 {dtype}: an indefinite batch is NaN on its 4 odd "
-            f"members in kernel and twin; K7 rejects them (consumed 3)")
+            f"members in kernel and twin (K6 at n = 150 and 30, bit-equal: "
+            f"{all(eq6)}); K7 rejects them (consumed 3)")
     return abs5, abs6, abs7
 
 
@@ -1167,6 +1186,49 @@ def _build_variants(source, defines):
     log(f"[sweep] {len(outs)} builds of {source} in "
         f"{time.perf_counter() - t0:.1f} s")
     return outs
+
+
+def ptxas_report():
+    """Not a phase: each kernel's registers and spills as ptxas reports
+    them, every csrc/*.cu compiled once more with the package's flags and
+    -Xptxas -v (all in parallel, objects thrown away), the names demangled
+    with c++filt. Run it alone with python3 -c 'import chip_smoke as s;
+    s.phase_device(); s.ptxas_report()'."""
+    import re
+    import tempfile
+
+    from ccgp_tpu_torch.ops import _build
+
+    nvcc = _build._nvcc()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        srcs = sorted(_build.SRC_DIR.glob("*.cu"))
+        procs = [subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+             f"{tmp}/{src.stem}.o", str(src)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for src in srcs]
+        reports = [p.communicate()[0] for p in procs]
+    for src, proc, text in zip(srcs, procs, reports):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v failed on {src.name}:\n"
+                               f"{text}")
+        name, frame = None, ""
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = subprocess.run(["c++filt", m.group(1)],
+                                      capture_output=True, text=True,
+                                      check=True).stdout.strip()
+            m = re.search(r"\d+ bytes stack frame.*", line)
+            if m:
+                frame = m.group(0)
+            m = re.search(r"Used \d+ registers", line)
+            if m and name:
+                name = name.replace("(anonymous namespace)::", "")
+                log(f"[ptxas] {src.name}: "
+                    f"{name.removeprefix('void ').split('(')[0]}: "
+                    f"{m.group(0)}, {frame}")
+                name, frame = None, ""
 
 
 def k1_block_sizes():
@@ -1445,7 +1507,7 @@ def phase_k8_k9():
             f"output; an indefinite batch is NaN on its 8 odd members in "
             f"kernel and twin")
 
-        errs, bit, seen = [], True, 0
+        errs, nbit, seen = [], 0, 0
         for b in (1, 5, 128, 1728):
             for n in (14, 26, 100, 128):
                 for d in (1, 2, 9, 16):
@@ -1462,12 +1524,12 @@ def phase_k8_k9():
                                 f"per_lane={per_lane} jitter={jit:g} {dtype}")
                             errs.append(e)
                             abs8 = max(abs8, ae)
-                            bit = bit and eq
+                            nbit += eq
                             seen += int((~torch.isfinite(got["logdet"]))
                                         .sum())
         args, _ = mix_case(8, 30, 2, dtype, seed=9, indefinite=True)
         got = gram_chol.fused_mix_quadratics(**args, scale=2.0, jitter=1e-2)
-        _compare_quads(got, gram_chol.fused_mix_quadratics_plain(
+        _, _, eq = _compare_quads(got, gram_chol.fused_mix_quadratics_plain(
             **args, scale=2.0, jitter=1e-2), tol, f"K8 indefinite {dtype}")
         if not torch.equal(~torch.isfinite(got["logdet"]).cpu(),
                            torch.arange(8) % 2 == 1):
@@ -1476,9 +1538,10 @@ def phase_k8_k9():
             f"{{1,5,128,1728}} x n in {{14,26,100,128}} x d in {{1,2,9,16}} "
             f"x scale/shift scalar and per lane x jitter {{0, 1e-8}}, "
             f"{dtype}: max rel err {max(errs):.3g} (tol {tol:g}); "
-            f"bit-equal: {bit}; {seen} NaN lanes (singular Grams at jitter "
+            f"bit-equal: {nbit} of {len(errs)}; {seen} NaN lanes (singular "
+            f"Grams at jitter "
             f"0), the same in kernel and twin; an indefinite batch is NaN "
-            f"on its 4 odd lanes")
+            f"on its 4 odd lanes (bit-equal: {eq})")
     g = torch.eye(129, dtype=torch.float64, device="cuda")[None]
     for what, call in (
             ("K9 n=129", lambda: chol_nll.chol_nll(g, g[0, 0])),
@@ -1765,11 +1828,17 @@ _SYMBOLS = {"threefry_split_chain": (("split_chain_kernel",),),
             "fused_mix_mh_rounds": (("mh_rounds_kernel<",),),
             "chol_quadratics_lanes": (("chol_lanes_kernel<", ", false>"),),
             "chol_factors_lanes": (("chol_lanes_kernel<", ", true>"),),
-            "chol_quadratics_smallk": (("chol_quad_tiles_kernel<",),
-                                       ("chol_quad_panel_kernel<",)),
-            "fused_mix_quadratics_smallk": (("smallk_kernel<", ", false>"),),
+            # K5 and K6 share two kernels templated on the entries' source
+            "chol_quadratics_smallk": (("chol_quad_tiles_kernel<",
+                                        "GramSource<"),
+                                       ("chol_quad_panel_kernel<",
+                                        "GramSource<")),
+            "fused_mix_quadratics_smallk": (("chol_quad_tiles_kernel<",
+                                             "SeMixSource<"),
+                                            ("chol_quad_panel_kernel<",
+                                             "SeMixSource<")),
             "fused_mix_mh_round": (("mh_round_cluster_kernel<",),
-                                   ("smallk_kernel<", ", true>")),
+                                   ("smallk_kernel<",)),
             "fused_mix_quadratics": (("gram_chol_kernel<",),),
             "chol_nll": (("chol_nll_kernel<",),)}
 
@@ -2041,10 +2110,10 @@ def phase_timing(fit):
 def _smallk_timing():
     """K5 at the 1-D round's shape (K = 4, n = 8, f64) and at n = 100, 256,
     512 and 1024 (K = 4, f32); K6 and K7 at the bench's one-round shape
-    (K = 4, n = 100, d = 2, f32). Each: device and per-call time, the plain
-    twin's time per call, the library route (cholesky_ex +
-    solve_triangular of [y, 1] on the same K Grams, timed only) and the
-    bound."""
+    (K = 4, n = 100, d = 2, f32) and K6 at n = 256. Each: device and
+    per-call time, the plain twin's time per call, the library route
+    (cholesky_ex + solve_triangular of [y, 1] on the same K Grams, timed
+    only) and the bound."""
     from ccgp_tpu_torch.ops import chol_smallk
 
     out = {}
@@ -2073,36 +2142,42 @@ def _smallk_timing():
             f"ms {lib_how} ({lib_call:.4f} ms per call), bound "
             f"{bound[0]:.2e} ms ({bound[1]})")
         out[("chol_quadratics_smallk", label)] = (k, p, lib, bound)
-    kk, n, d, dim = 4, 100, 2, 3
-    args, rnd = mix_case(kk, n, d, torch.float32, seed=7)
-    args["jitter"] = 1e-3
-    grams = chol_smallk._se_mix_gram_plain(args["x"], args["r1"], args["r2"],
-                                           args["p"], 0.0)
-    lib_fn = lambda: _library_lanes(grams, args["y"], 1e-3)  # noqa: E731
-    lib_call = _cuda_ms(lib_fn, 20)
-    lib, lib_how = _library_ms(lib_fn, 20, lib_call)
-    elem = 4
-    # x, y, the rates and weights in; four quadratics per member out
-    nbytes6 = elem * (n * d + n + 2 * kk * d + kk + 4 * kk)
-    gram6 = kk * n * (n + 1) / 2 * (5 * d + 6)
-    fact6 = kk * (n ** 3 / 3 + 2 * n * n + 6 * n)
-    # plus extra, log_scale, log_u, the candidates and the state in; z_new,
-    # [val, beta] and two int32 flags out (the quadratics stay inside)
-    nbytes7 = (nbytes6 - elem * 4 * kk
-               + elem * (3 * kk + kk * dim + 2 + dim + 2) + 8)
-    for name, fn, plain, nbytes, vec in (
-            ("fused_mix_quadratics_smallk",
-             lambda: chol_smallk.fused_mix_quadratics_smallk(**args),
-             lambda: chol_smallk.fused_mix_quadratics_smallk_plain(**args),
-             nbytes6, gram6),
-            ("fused_mix_mh_round",
-             lambda: chol_smallk.fused_mix_mh_round(**args, **rnd),
-             lambda: chol_smallk.fused_mix_mh_round_plain(**args, **rnd),
-             nbytes7, gram6 + 12 * kk)):
+    # K6 and K7 at the bench's one-round shape; K6 also at n = 256, the
+    # edge of the gate that sends it the body_spec rounds (its panel core)
+    for name, n in (("fused_mix_quadratics_smallk", 100),
+                    ("fused_mix_mh_round", 100),
+                    ("fused_mix_quadratics_smallk", 256)):
+        kk, d, elem = 4, 2, 4
+        dim = d + 2
+        args, rnd = mix_case(kk, n, d, torch.float32, seed=7)
+        args["jitter"] = 1e-3
+        grams = chol_smallk._se_mix_gram_plain(args["x"], args["r1"],
+                                               args["r2"], args["p"], 0.0)
+        lib_fn = lambda: _library_lanes(grams, args["y"], 1e-3)  # noqa: E731
+        lib_call = _cuda_ms(lib_fn, 20)
+        lib, lib_how = _library_ms(lib_fn, 20, lib_call)
+        # x, y, the rates and weights in; four quadratics per member out
+        nbytes = elem * (n * d + n + 2 * kk * d + kk + 4 * kk)
+        gram = kk * n * (n + 1) / 2 * (5 * d + 6)
+        fact = kk * (n ** 3 / 3 + 2 * n * n + 6 * n)
+        if name == "fused_mix_mh_round":
+            # plus extra, log_scale, log_u, the candidates and the state in;
+            # z_new, [val, beta] and two int32 flags out (the quadratics stay
+            # inside); the log-posteriors
+            nbytes += (elem * (-4 * kk + 3 * kk + kk * dim + 2 + dim + 2)
+                       + 8)
+            gram += 12 * kk
+            fn = lambda: chol_smallk.fused_mix_mh_round(**args, **rnd)  # noqa: E731
+            plain = lambda: chol_smallk.fused_mix_mh_round_plain(  # noqa: E731
+                **args, **rnd)
+        else:
+            fn = lambda: chol_smallk.fused_mix_quadratics_smallk(**args)  # noqa: E731
+            plain = lambda: chol_smallk.fused_mix_quadratics_smallk_plain(  # noqa: E731
+                **args)
         call = _cuda_ms(fn, 20)
         k, how = _kernel_ms(name, fn, 20, call)
         p = _cuda_ms(plain, 3)
-        bound = _bound(nbytes, (vec, PEAK_VEC[elem]), (fact6, PEAK_OPS[elem]))
+        bound = _bound(nbytes, (gram, PEAK_VEC[elem]), (fact, PEAK_OPS[elem]))
         cluster, blocks, _ = chol_smallk.smallk_layout(name, n, kk,
                                                        torch.float32)
         log(f"[6] {name} K={kk} n={n} d={d} f32 ({blocks} blocks, clusters "
@@ -2111,7 +2186,7 @@ def _smallk_timing():
             f"cholesky_ex+solve_triangular of the same Grams {lib:.4f} ms "
             f"{lib_how} ({lib_call:.4f} ms per call), bound "
             f"{bound[0]:.2e} ms ({bound[1]})")
-        out[(name, "n=100")] = (k, p, lib, bound)
+        out[(name, f"n={n}")] = (k, p, lib, bound)
     return out
 
 
@@ -2153,6 +2228,21 @@ def _k8_k9_timing():
             f"solve_triangular {lib:.4f} ms {lib_how} ({lib_call:.4f} ms per "
             f"call), bound {bound[0]:.2e} ms ({bound[1]})")
         out[("fused_mix_quadratics", label)] = (k, p, lib, bound)
+    # K8 is latency-bound, a pivot step per block at a time: the EB row's
+    # lanes at one per SM (132), as the row runs them (1728, ~13 per SM)
+    # and four times as many. Flat times say the block's own steps, not
+    # launching and scheduling the blocks, take the time
+    lanes = []
+    for b in (132, 1728, 4 * 1728):
+        idx = torch.arange(b, device="cuda") % 1728
+        args = dict(eb, r1=eb["r1"][idx].contiguous(),
+                    r2=eb["r2"][idx].contiguous(), p=eb["p"][idx],
+                    scale=eb["scale"][idx])
+        fn = lambda: gram_chol.fused_mix_quadratics(**args)  # noqa: E731
+        k, how = _kernel_ms("fused_mix_quadratics", fn, 20, _cuda_ms(fn, 20))
+        lanes.append(f"B={b} {k:.4f} ms {how}")
+    log(f"[6] fused_mix_quadratics at the EB row's n = 14, f64, by lanes: "
+        + "; ".join(lanes))
     g, y = map_grams(), mp["y"]
     fn = lambda: chol_nll.chol_nll(g, y, jitter=1e-3)  # noqa: E731
     call = _cuda_ms(fn, 20)

@@ -119,6 +119,53 @@ def test_k5_twin_above_one_tile(n):
                 <= _rel_to(np.asarray(ref[k]), oracle[k])), k
 
 
+def _mix_above_one_tile(kk, n, seed, rates=(3.5, 5.0)):
+    """K6's inputs beyond one tile: x (n, 2) uniform, smooth rates
+    e^3.5..e^5 per axis, rough rates twice them, p in (0.2, 0.8). Rougher
+    than se_grams: with its e^2.5..e^4 JAX's own K6 lies past the 1e-10
+    tier from the long-double oracle at n = 129, so kappa eps is past the
+    tier (`python tests/test_torch_chol_smallk.py` prints the distances)."""
+    r = np.random.default_rng(seed)
+    x = r.uniform(size=(n, 2))
+    r1 = np.repeat(np.exp(np.linspace(*rates, kk))[:, None], 2, axis=1)
+    return x, r.normal(size=n), r1, 2.0 * r1, np.linspace(0.2, 0.8, kk)
+
+
+def _mix_gram_longdouble(x, r1, r2, p):
+    """The SE-mixture Grams (K, n, n) in np.longdouble."""
+    x, r1, r2, p = (np.asarray(a, np.longdouble) for a in (x, r1, r2, p))
+    d2 = (x[:, None, :] - x[None, :, :]) ** 2
+    w1, w2 = p * p, (1 - p) * (1 - p)
+    e1 = np.exp(-np.einsum("ija,ka->kij", d2, r1))
+    e2 = np.exp(-np.einsum("ija,ka->kij", d2, r2))
+    return ((w1[:, None, None] * e1 + w2[:, None, None] * e2)
+            / (w1 + w2)[:, None, None])
+
+
+@pytest.mark.parametrize("n", [129, 200])
+def test_k6_twin_above_one_tile(n):
+    """Above one tile JAX's K6 runs its blocked-Schur core and the twin
+    its right-looking loop (the order of K6's panel core on the card). On
+    inputs whose conditioning keeps kappa eps inside the tier, the twin
+    agrees with JAX's K6 in interpret mode within 1e-10 at n = 129 and 200
+    (~14 s and ~23 s), and at n = 200 each quantity lies within 1e-10 of a
+    long-double oracle (the Grams built in long double too). Which of the
+    two lies nearer the oracle is rounding noise here (both 1e-11 to
+    1e-14 from it), so the oracle holds each to the tier, not to the
+    other."""
+    x, y, r1, r2, p = _mix_above_one_tile(2, n, seed=3 * n)
+    ref = j_k6(jnp.asarray(x), jnp.asarray(y), jnp.asarray(r1),
+               jnp.asarray(r2), jnp.asarray(p), jitter=1e-6, interpret=True)
+    got = chol_smallk.fused_mix_quadratics_smallk(t(x), t(y), t(r1), t(r2),
+                                                  t(p), jitter=1e-6)
+    for k in ref:
+        close(got[k], ref[k])
+    if n > 129:
+        oracle = _oracle_quads(_mix_gram_longdouble(x, r1, r2, p), y, 1e-6)
+        for k in oracle:
+            assert _rel_to(got[k].numpy(), oracle[k]) <= TOL, k
+
+
 def test_k5_twin_nan_and_lower_triangle():
     """An indefinite member gives NaN quadratics on that member only; NaN
     above the diagonal changes nothing."""
@@ -239,3 +286,26 @@ def test_logpost_batch_routes():
             one = lp(t(zs[i]))
             close(vals[i], one.val.numpy(), 1e-9)
             close(betas[i], one.beta.numpy(), 1e-9)
+
+
+if __name__ == "__main__":
+    # the distances behind _mix_above_one_tile's rates: each quantity of
+    # the twin and of JAX's K6 from the long-double oracle, and from each
+    # other, at K = 2 on se_grams' rates and on the test's
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    for rates in ((2.5, 4.0), (3.5, 5.0)):
+        for n in (129, 200):
+            x, y, r1, r2, p = _mix_above_one_tile(2, n, 3 * n, rates)
+            ref = j_k6(*(jnp.asarray(a) for a in (x, y, r1, r2, p)),
+                       jitter=1e-6, interpret=True)
+            got = chol_smallk.fused_mix_quadratics_smallk(
+                t(x), t(y), t(r1), t(r2), t(p), jitter=1e-6)
+            oracle = _oracle_quads(_mix_gram_longdouble(x, r1, r2, p), y,
+                                   1e-6)
+            for k in oracle:
+                tw, jx = got[k].numpy(), np.asarray(ref[k])
+                print(f"rates e^{rates[0]}..e^{rates[1]} n={n} {k}: twin "
+                      f"{_rel_to(tw, oracle[k]):.3g}, JAX "
+                      f"{_rel_to(jx, oracle[k]):.3g} from the oracle; "
+                      f"{_rel_to(tw, jx):.3g} apart")

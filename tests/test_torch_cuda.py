@@ -12,9 +12,10 @@ in the same order with explicitly rounded arithmetic, so acceptance flags,
 consumed counts and NaN positions are equal, and records, factors and
 quadratics agree to 1e-4 (float32) and 1e-10 (float64) relative to
 max(1, |value|) — room for the math library's exp / log / rsqrt, which
-may differ from PyTorch's in the last place. K5 and K7 are also held bit
-for bit on the shapes where their cores change (n = 127 / 128 / 129) and
-at the cluster core's sizes, as chip_smoke.py's phase 11 holds them.
+may differ from PyTorch's in the last place. K5-K7 are also held bit for
+bit on the shapes where their cores change (n = 127 / 128 / 129) and at
+the cluster core's sizes, as chip_smoke.py's phase 11 holds them, and K8
+at an EB row and the MAP cloud, as phase 14 holds it.
 """
 import ctypes
 
@@ -512,6 +513,45 @@ def test_mh_round_bit_equal_for_every_consumed(cuda, kk, n, dtype):
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("kk,n,d", [(1, 8, 1), (4, 100, 2), (16, 128, 9),
+                                    (4, 129, 2), (16, 256, 1), (4, 512, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_mix_quadratics_smallk_bit_equal(cuda, kk, n, d, dtype):
+    """K6 on both of K5's cores (a block per matrix up to n = 128, a
+    cluster per matrix beyond) gives its twin's numbers bit for bit."""
+    args, _ = _mix_case(kk, n, d, dtype, cuda, seed=kk * n + d)
+    jitter = 1e-3 if dtype == torch.float32 else 1e-8
+    before = chol_smallk.fused_mix_quadratics_smallk.launches
+    got = chol_smallk.fused_mix_quadratics_smallk(**args, jitter=jitter)
+    torch.cuda.synchronize()
+    assert chol_smallk.fused_mix_quadratics_smallk.launches == before + 1
+    assert _equal_quads(got, chol_smallk.fused_mix_quadratics_smallk_plain(
+        **args, jitter=jitter))
+
+
+@pytest.mark.parametrize("n", [8, 100, 129, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_mix_quadratics_smallk_takes_k5_layout(cuda, n, dtype):
+    for kk in (1, 4, 16):
+        assert (chol_smallk.smallk_layout("fused_mix_quadratics_smallk", n,
+                                          kk, dtype)
+                == chol_smallk.smallk_layout("chol_quadratics_smallk", n, kk,
+                                             dtype))
+
+
+@pytest.mark.parametrize("n", [30, 150])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_mix_quadratics_smallk_nan_bit_equal(cuda, n, dtype):
+    """An indefinite batch on either core: NaN on the odd members alone,
+    every output equal to the twin's."""
+    args, _ = _mix_case(8, n, 2, dtype, cuda, seed=9, indefinite=True)
+    got = chol_smallk.fused_mix_quadratics_smallk(**args, jitter=1e-2)
+    nan = ~torch.isfinite(got["logdet"])
+    assert torch.equal(nan.cpu(), torch.arange(8) % 2 == 1)
+    assert _equal_quads(got, chol_smallk.fused_mix_quadratics_smallk_plain(
+        **args, jitter=1e-2))
+
+
 # ---------------------------------------------------------------------------
 # K9 (chol_nll, the per-matrix left-looking kernel) and K8
 # (fused_mix_quadratics, the fused mixture-Gram kernel)
@@ -601,3 +641,42 @@ def test_fused_mix_quadratics_nan_on_the_same_lanes(cuda, dtype):
     assert torch.equal(nan.cpu(), torch.arange(8) % 2 == 1)
     _quads_equal(got, gram_chol.fused_mix_quadratics_plain(
         **args, scale=2.0, jitter=1e-2), _tol(dtype))
+
+
+def _k8_case(b, n, d, dtype, cuda, seed):
+    """K8 inputs with scale and shift per lane."""
+    args, r = _mix_case(b, n, d, dtype, cuda, seed)
+    args.update(scale=torch.tensor(r.uniform(0.5, 2.0, b), dtype=dtype,
+                                   device=cuda),
+                shift=torch.tensor(r.uniform(0.0, 3.0, b), dtype=dtype,
+                                   device=cuda))
+    return args
+
+
+@pytest.mark.parametrize("b,n,d,dtype", [
+    (1728, 14, 2, torch.float64),    # an EB row: a warp per lane
+    (128, 100, 2, torch.float32),    # the MAP cloud: 512 threads per lane
+])
+def test_fused_mix_quadratics_bit_equal(cuda, b, n, d, dtype):
+    args = _k8_case(b, n, d, dtype, cuda, seed=b + n)
+    jitter = 1e-3 if dtype == torch.float32 else 1e-8
+    before = gram_chol.fused_mix_quadratics.launches
+    got = gram_chol.fused_mix_quadratics(**args, jitter=jitter)
+    torch.cuda.synchronize()
+    assert gram_chol.fused_mix_quadratics.launches == before + 1
+    assert _equal_quads(got, gram_chol.fused_mix_quadratics_plain(
+        **args, jitter=jitter))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_mix_quadratics_nan_bit_equal(cuda, dtype):
+    """An indefinite batch with per-lane scale and shift: NaN on the odd
+    lanes alone, every output equal to the twin's."""
+    args, r = _mix_case(8, 30, 2, dtype, cuda, seed=9, indefinite=True)
+    args.update(scale=torch.tensor(r.uniform(0.5, 2.0, 8), dtype=dtype,
+                                   device=cuda), shift=0.1)
+    got = gram_chol.fused_mix_quadratics(**args, jitter=1e-2)
+    nan = ~torch.isfinite(got["logdet"])
+    assert torch.equal(nan.cpu(), torch.arange(8) % 2 == 1)
+    assert _equal_quads(got, gram_chol.fused_mix_quadratics_plain(
+        **args, jitter=1e-2))
