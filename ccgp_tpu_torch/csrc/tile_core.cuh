@@ -1,8 +1,9 @@
 // tile_core.cuh: the register-tile factorization core for n <= 128, shared
 // by K1 (csrc/mh_rounds.cu, one candidate per block of a cluster), K5 and
 // K6 (csrc/chol_smallk.cu, one Gram per block), K7 (csrc/chol_smallk.cu,
-// one candidate per block of a cluster) and K8 (csrc/gram_chol.cu, one
-// lane per block), and the launches they and K5's and K6's panel core
+// one candidate per block of a cluster), K8 (csrc/gram_chol.cu, one lane
+// per block) and K3 and K4 beyond n = 32 (csrc/chol_lanes.cu, one Gram per
+// block), and the launches they and K5's and K6's panel core
 // (n > 128) share.
 //
 // The core factors the AUGMENTED matrix [M | y | 1] of one n x n symmetric
@@ -11,8 +12,9 @@
 // Thread t holds one TQ x TQ tile of the augmented upper triangle in
 // registers: row tile a (rows TQ a ..) by column tile b >= a (columns
 // TQ b ..), t counting the tiles row tile by row tile (`tile_of`). Pivot j
-// reads d_j = M[j][j], dinv = rsqrt(d_j) and the scaled row
-// L_j[c] = M[j][c] dinv (j <= c <= n + 1), and every entry downdates
+// reads d_j = M[j][j] and the scaled row L_j[c] = M[j][c] dinv with
+// dinv = rsqrt(d_j) (j <= c <= n + 1; K3 and K4 take M[j][c] / sqrt(d_j)
+// instead, the pivot policy `P`), and every entry downdates
 // M[i][c] -= L_j[i] L_j[c] once per pivot, in ascending j. The scaled rows
 // go to shared memory, row j holding columns TQ floor(j / TQ) .. TQ ntc - 1
 // (ntc column tiles), so that each tile's TQ columns are one aligned
@@ -25,11 +27,12 @@
 // functor with entry(r, c) (r <= c < n, jitter on the diagonal included)
 // and diag(r): `SeMixSource` builds the SE-mixture correlation from x
 // (K1, K6, K7), `ScaledSeMixSource` the covariance scale R + shift J from
-// it (K8), `GramSource` reads a materialized Gram's lower triangle (K5).
+// it (K8), `GramSource` reads a materialized Gram's lower triangle (K5,
+// K3, K4).
 //
 // Arithmetic: explicitly rounded intrinsics in the order of the plain
-// PyTorch twin (`_factor_plain` in ops/chol_smallk.py), as in
-// csrc/chol_core.cuh.
+// PyTorch twin (`_factor_plain` in ops/chol_smallk.py, or in
+// ops/chol_lanes.py for `SqrtPivot`), as in csrc/chol_core.cuh.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -245,33 +248,61 @@ struct GramSource {
   __device__ __forceinline__ T diag(int r) const { return entry(r, r); }
 };
 
+// How pivot j turns d_j, row j's downdated diagonal, into the factor f
+// that scales row j and the pivot it leaves in D[j], from which the kernel
+// takes the log terms lg that `tile_quadratics` sums. Two orders of
+// arithmetic, which round differently:
+//   RsqrtPivot (K1, K5-K8; the twins of ops/chol_smallk.py and
+//     ops/gram_chol.py): f = rsqrt(d_j), L_j[c] = M[j][c] f, D[j] = d_j,
+//     lg = log D[j];
+//   SqrtPivot (K3, K4; the twin `_factor_plain` of ops/chol_lanes.py):
+//     f = sqrt(d_j), L_j[c] = M[j][c] / f, D[j] = f (the factor's
+//     diagonal), lg = 2 log D[j].
+struct RsqrtPivot {
+  template <typename T>
+  static __device__ __forceinline__ T factor(T dj) { return Ar<T>::rsqrt_(dj); }
+  template <typename T>
+  static __device__ __forceinline__ T scale(T m, T f) { return Ar<T>::mul(m, f); }
+  template <typename T>
+  static __device__ __forceinline__ T pivot(T dj, T) { return dj; }
+};
+
+struct SqrtPivot {
+  template <typename T>
+  static __device__ __forceinline__ T factor(T dj) { return Ar<T>::sqrt_(dj); }
+  template <typename T>
+  static __device__ __forceinline__ T scale(T m, T f) { return Ar<T>::div(m, f); }
+  template <typename T>
+  static __device__ __forceinline__ T pivot(T, T f) { return f; }
+};
+
 // Pivot j's step, by each tile that holds part of row j (downdated by
 // every earlier pivot): `row` its TQ columns TQ b .., dj the diagonal d_j
-// (every tile of the row keeps it). dinv = rsqrt(d_j) and the scaled
-// entries L_j[c] = M[j][c] dinv (j <= c <= n + 1) into the rows; the
-// diagonal tile stores d_j in D[j]; then the thread arrives on `bar`,
-// which completes when every tile of row j has (ntc - floor(j / TQ)
-// arrivals) and so releases the row to the block.
-template <typename T>
+// (every tile of the row keeps it). The scaled entries
+// L_j[c] = P::scale(M[j][c], P::factor(d_j)) (j <= c <= n + 1) into the
+// rows; the diagonal tile stores P::pivot in D[j]; then the thread arrives
+// on `bar`, which completes when every tile of row j has (ntc - floor(j /
+// TQ) arrivals) and so releases the row to the block.
+template <typename T, typename P = RsqrtPivot>
 __device__ __forceinline__ void publish_pivot(T* L, T* D, unsigned bar,
                                               int j, int b, bool diag, int n,
                                               const T (&row)[TQ], T dj) {
-  using A = Ar<T>;
-  const T dinv = A::rsqrt_(dj);
+  const T f = P::factor(dj);
   T* Lj = aug_at(L, j, TQ * b, n);
 #pragma unroll
   for (int p = 0; p < TQ; ++p) {
     const int c = TQ * b + p;
-    if (c >= j && c <= n + 1) Lj[p] = A::mul(row[p], dinv);
+    if (c >= j && c <= n + 1) Lj[p] = P::scale(row[p], f);
   }
-  if (diag) D[j] = dj;
+  if (diag) D[j] = P::pivot(dj, f);
   mbar_arrive(bar);
 }
 
 // The register-tile core (n <= TILE): one matrix's augmented rows built
 // from `src` and y into the tiles' registers and factored there (see the
 // header). Leaves the scaled rows at L (aug_row_off(n, n) values) and the
-// pivots d_j at D. Every thread of the block calls it once what `src`
+// pivots at D (`P::pivot`, d_j for RsqrtPivot). Every thread of the block
+// calls it once what `src`
 // reads is visible; the threads without a tile (ta = -1) only meet the
 // block barrier at its end.
 //
@@ -285,7 +316,7 @@ __device__ __forceinline__ void publish_pivot(T* L, T* D, unsigned bar,
 // diagonal (c < r), of a finished row (r <= j) or beyond n + 1 takes junk
 // that no one reads (a row is published from its columns r..n+1 before it
 // is finished, and L_j is read at columns up to n + 1 only).
-template <typename T, typename Src>
+template <typename T, typename P = RsqrtPivot, typename Src>
 __device__ __forceinline__ void factor_tiles(T* L, T* D, unsigned bar0,
                                              unsigned parity, int ta, int tb,
                                              const Src& src,
@@ -315,7 +346,8 @@ __device__ __forceinline__ void factor_tiles(T* L, T* D, unsigned bar0,
       dg[q] = r < n ? src.diag(r) : T(0);
     }
     const bool diag = ta == tb;
-    if (ta == 0) publish_pivot<T>(L, D, bar0, 0, tb, diag, n, m[0], dg[0]);
+    if (ta == 0)
+      publish_pivot<T, P>(L, D, bar0, 0, tb, diag, n, m[0], dg[0]);
     // the tile applies the pivots below its last row
     const int last = min(TQ * ta + TQ - 1, n - 1);
     for (int j = 0; j < last; ++j) {
@@ -333,16 +365,17 @@ __device__ __forceinline__ void factor_tiles(T* L, T* D, unsigned bar0,
 #pragma unroll
       for (int q = 0; q < TQ; ++q)
         if (TQ * ta + q == j + 1)
-          publish_pivot<T>(L, D, bar0 + 8 * (j + 1), j + 1, tb, diag, n,
-                           m[q], dg[q]);
+          publish_pivot<T, P>(L, D, bar0 + 8 * (j + 1), j + 1, tb, diag,
+                              n, m[q], dg[q]);
     }
   }
   __syncthreads();
 }
 
 // logdet and the quadratics of one factored matrix, summed in pivot order
-// from log d_j (`lg`, n values) and L^-1 y, L^-1 1 (columns n and n + 1 of
-// the scaled rows L). One thread calls it.
+// from the log terms (`lg`, n values: log d_j, or 2 log d_j for
+// `SqrtPivot`) and L^-1 y, L^-1 1 (columns n and n + 1 of the scaled rows
+// L). One thread calls it.
 template <typename T>
 __device__ __forceinline__ void tile_quadratics(T* L, const T* lg, int n,
                                                 T& ld, T& qyy, T& qoy,

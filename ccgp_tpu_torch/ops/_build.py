@@ -51,6 +51,8 @@ _SIGNATURES = {
     # grams, y, q, chol, wy, wo, B, n, factors, jitter, stream
     "ccgp_chol_lanes_f32": [_P] * 6 + [_I] * 3 + [_D, _P],
     "ccgp_chol_lanes_f64": [_P] * 6 + [_I] * 3 + [_D, _P],
+    # n, B, elem bytes, &group, &threads, &blocks
+    "ccgp_chol_lanes_layout": [_I] * 3 + [_P] * 3,
     # which (0: K5, 1: K6, 2: K7), n, K, elem bytes, &cluster, &blocks,
     # &ws_elems
     "ccgp_smallk_layout": [_I] * 4 + [_P] * 3,

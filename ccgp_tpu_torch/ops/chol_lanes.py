@@ -12,10 +12,12 @@ also forms row j of W = L^-1 [y, 1] and downdates the right-hand sides.
 
 Only the lower triangle of each Gram is read; the entries above the
 diagonal do not change any output. The jitter is absolute (added to the
-diagonal). On a CUDA tensor each
-wrapper launches `csrc/chol_lanes.cu` (one thread block per matrix); on a
-CPU tensor it runs `_factor_plain`, which performs the same operations in
-the same order. Unlike the JAX package, nothing is padded to 128: the
+diagonal). On a CUDA tensor each wrapper launches `csrc/chol_lanes.cu`
+(`lanes_layout` says how: up to n = 32 a matrix per group of 8, 16 or 32
+lanes of a warp, in registers; beyond, a thread block per matrix on the
+register-tile core); on a CPU tensor it runs `_factor_plain`, which
+performs the same operations in the same order. Unlike the JAX package,
+nothing is padded to 128: the
 identity blocks it pads with add 0 to the log-determinant and the
 quadratics, so the first B results are the same.
 
@@ -23,6 +25,8 @@ A non-PD matrix gives NaN (the square root of a negative pivot), never an
 exception.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -36,6 +40,18 @@ def dispatch_ok(b: int, n: int) -> bool:
     """The JAX package's routing rule for the lanes kernels (B >= 64,
     n <= 128), without its test of the backend."""
     return b >= MIN_BATCH and n <= MAX_N
+
+
+def lanes_layout(n: int, b: int, dtype) -> tuple[int, int, int]:
+    """Both kernels' launch for B matrices of n x n as `csrc/chol_lanes.cu`
+    lays it out: (lanes per matrix on the warp path, 0 on the tile path;
+    threads per block; blocks). Needs the kernel library."""
+    group, threads, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    elem = torch.empty((), dtype=dtype).element_size()
+    _build.check(_build.library().ccgp_chol_lanes_layout(
+        n, b, elem, ctypes.addressof(group), ctypes.addressof(threads),
+        ctypes.addressof(blocks)), "chol_lanes layout")
+    return group.value, threads.value, blocks.value
 
 
 def _check(grams: torch.Tensor, y: torch.Tensor) -> None:
@@ -151,7 +167,8 @@ def chol_quadratics_lanes(grams: torch.Tensor, y: torch.Tensor,
                           jitter=0.0) -> dict:
     """Batched {logdet, qyy, qoy, qoo} for grams (B, n, n), n <= 128, with
     an absolute diagonal jitter. CUDA tensors launch `csrc/chol_lanes.cu`
-    with the factor output off; CPU tensors take the plain version."""
+    with the factor output off (`lanes_layout`); CPU tensors take the
+    plain version."""
     if _device_of(grams) == "cpu":
         return chol_quadratics_lanes_plain(grams, y, jitter)
     _check(grams, y)
@@ -167,8 +184,8 @@ def chol_factors_lanes(grams: torch.Tensor, y: torch.Tensor,
                        jitter=0.0) -> dict:
     """Batched factor cache {chol (B, n, n) lower, wy = L^-1 y, wo = L^-1 1
     (B, n), logdet, qyy, qoy, qoo}. CUDA tensors launch
-    `csrc/chol_lanes.cu` with the factor output on; CPU tensors take the
-    plain version."""
+    `csrc/chol_lanes.cu` with the factor output on (`lanes_layout`); CPU
+    tensors take the plain version."""
     if _device_of(grams) == "cpu":
         return chol_factors_lanes_plain(grams, y, jitter)
     _check(grams, y)

@@ -18,11 +18,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      in f32, small n = 16 and 20 in f64; K in {1, 3, 4, 5, 8, 16} x n in
      {14, 20, 100, 128, 129, 300} x f32 and f64 inside the envelope; an
      indefinite candidate rejected inside its block; a p prior);
-  7. the batched Cholesky kernels (quadratics K3, factors K4) against
-     their plain versions: B in {128, 64, 200, 1728} x n in {100, 14,
-     128}, f32 and f64, plus an indefinite and a rank-deficient batch
-     whose NaNs must fall on the same matrices, and a batch with NaN
-     above the diagonal (only the lower triangle may be read);
+  7. the batched Cholesky kernels (quadratics K3, factors K4; a matrix
+     per group of warp lanes up to n = 32, a block per matrix on the
+     register-tile core beyond) against their plain versions, bit for
+     bit with NaN in the same places, with the count of bit-equal records
+     and the path each n took: B in {64, 65, 128, 1728} x n in {1, 8, 14,
+     16, 17, 31, 32, 33, 100, 127, 128}, f32 and f64, plus an indefinite
+     and a rank-deficient batch whose NaNs must fall on the same matrices,
+     and a batch with NaN above the diagonal (only the lower triangle may
+     be read), each at n = 14 and 100 (both paths);
  11. the small-K kernels against their plain versions, with the count
      of bit-equal records: K5 (materialized Grams; register tiles up to
      n = 128, a cluster per Gram beyond) over K in {1, 4, 16} x n in {8,
@@ -52,7 +56,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      `predict_combined_gp` with phase 5's key: the same chain, and
      predictions that match phase 5's stash path;
   6. each kernel's time next to its plain version's and a library call's
-     at the main paths' shapes (K5 at the 1-D round and at n = 100, 256,
+     at the main paths' shapes (K3 at the MAP cloud and zoom and an EB
+     row, K4 at a lazy-predict chunk and the 1-D factor cache, each with
+     the path it took; K5 at the 1-D round and at n = 100, 256,
      512 and 1024, K6 and K7 at the bench's one-round shape, K6 at n = 256,
      K8 at an EB row and the MAP cloud, K9 at the MAP cloud): device time
      under torch.profiler where it kept a record of every launch the
@@ -492,14 +498,24 @@ def se_grams(b, n, seed):
     return np.exp(-theta[:, None, None] * d2[None]), r.normal(size=n)
 
 
+def _lanes_equal(got: dict, ref: dict) -> bool:
+    """True when every output equals the twin's bit for bit (+0 and -0 as
+    equal), NaN in the same places."""
+    def same(a, b):
+        return (torch.equal(torch.isnan(a), torch.isnan(b))
+                and torch.equal(a.nan_to_num(0.0, math.inf, -math.inf),
+                                b.nan_to_num(0.0, math.inf, -math.inf)))
+    return set(got) == set(ref) and all(same(got[k], ref[k]) for k in ref)
+
+
 def _compare_lanes(g, y, jitter, label, expect_nan=None):
     """Both kernels against their plain versions on the card. Returns the
-    largest relative error, the largest absolute difference over finite
-    entries, and the number of matrices whose logdet is NaN."""
+    largest absolute difference over finite entries, the number of
+    matrices whose logdet is NaN, and the labels of the kernels whose
+    outputs were not bit-equal to the twin's."""
     from ccgp_tpu_torch.ops import chol_lanes
 
-    tol = F32_RTOL if g.dtype == torch.float32 else F64_RTOL
-    err, abs_err = 0.0, 0.0
+    abs_err, unequal = 0.0, []
     for kern, plain in ((chol_lanes.chol_quadratics_lanes,
                          chol_lanes.chol_quadratics_lanes_plain),
                         (chol_lanes.chol_factors_lanes,
@@ -507,75 +523,94 @@ def _compare_lanes(g, y, jitter, label, expect_nan=None):
         got = kern(g, y, jitter=jitter)
         ref = plain(g, y, jitter=jitter)
         torch.cuda.synchronize()
-        if set(got) != set(ref):
-            raise AssertionError(f"{label}: {kern.__name__} keys differ")
-        for k in ref:
-            e = _rel_err(got[k], ref[k])
-            if not e <= tol:
-                raise AssertionError(f"{label}: {kern.__name__}[{k}] rel err "
-                                     f"{e:.3g} > {tol:g} (or NaNs differ)")
-            fin = torch.isfinite(ref[k])
+        if not _lanes_equal(got, ref):
+            unequal.append(f"{kern.__name__} {label}")
+        for k in set(got) & set(ref):
+            fin = torch.isfinite(ref[k]) & torch.isfinite(got[k])
             if bool(fin.any()):
                 abs_err = max(abs_err, float(torch.max(torch.abs(
                     got[k][fin] - ref[k][fin]))))
-            err = max(err, e)
         nan = ~torch.isfinite(got["logdet"])
         if expect_nan is not None and not torch.equal(nan.cpu(), expect_nan):
             raise AssertionError(f"{label}: NaN on the wrong matrices")
-    return err, abs_err, int(nan.sum())
+    return abs_err, int(nan.sum()), unequal
+
+
+LANES_N = (1, 8, 14, 16, 17, 31, 32, 33, 100, 127, 128)
+LANES_B = (64, 65, 128, 1728)   # 65: a part-filled warp group
+LANES_JITTER = {torch.float32: 1e-3, torch.float64: 1e-6}
 
 
 def phase_lanes():
     from ccgp_tpu_torch.ops import chol_lanes
 
-    abs_errs = []
-    for dtype, jitter in ((torch.float32, 1e-3), (torch.float64, 1e-6)):
-        t = lambda a: torch.tensor(a, dtype=dtype, device="cuda")  # noqa: E731
-        errs = []
-        for b in (128, 64, 200, 1728):
-            for n in (100, 14, 128):
-                g, y = se_grams(b, n, seed=b + n)
-                err, ae, _ = _compare_lanes(t(g), t(y), jitter,
+    abs_errs, unequal = [], []
+    records = {dt: 0 for dt in LANES_JITTER}
+    paths = {dt: {} for dt in LANES_JITTER}
+    for n in LANES_N:
+        for b in LANES_B:
+            g64, y64 = se_grams(b, n, seed=b + n)
+            for dtype, jitter in LANES_JITTER.items():
+                g, y = (torch.tensor(a, dtype=dtype, device="cuda")
+                        for a in (g64, y64))
+                ae, _, bad = _compare_lanes(g, y, jitter,
                                             f"B={b} n={n} {dtype}")
-                errs.append(err)
                 abs_errs.append(ae)
-        log(f"[7] chol lanes kernels == plain for B in {{128,64,200,1728}} "
-            f"x n in {{100,14,128}} {dtype}: max rel err {max(errs):.3g}")
-        # only the lower triangle is read: NaN above the diagonal changes
-        # no output
-        g, y = (t(a) for a in se_grams(128, 100, seed=5))
-        junk = g.clone()
-        iu = torch.triu_indices(100, 100, 1, device="cuda")
-        junk[:, iu[0], iu[1]] = math.nan
-        for kern in (chol_lanes.chol_quadratics_lanes,
-                     chol_lanes.chol_factors_lanes):
-            ref, got = kern(g, y, jitter=jitter), kern(junk, y, jitter=jitter)
-            if not all(torch.equal(got[k], ref[k]) for k in ref):
-                raise AssertionError(f"{kern.__name__} {dtype}: the upper "
-                                     f"triangle changed an output")
-        log(f"[7] {dtype}: NaN above the diagonal changes no output of "
-            f"either kernel (B=128 n=100)")
-    for dtype in (torch.float32, torch.float64):
+                unequal += bad
+                records[dtype] += 2
+                paths[dtype][n] = chol_lanes.lanes_layout(n, b, dtype)[:2]
+    for dtype in LANES_JITTER:
+        bad = sum(str(dtype) in u for u in unequal)
+        log(f"[7] K3 and K4 == plain bit for bit (NaN in the same places) "
+            f"for B in {set(LANES_B)} x n in {set(LANES_N)}, {dtype}: "
+            f"{records[dtype] - bad} of {records[dtype]} records; (lanes "
+            f"per matrix, 0 on the tile path; threads per block) by n: "
+            + ", ".join(f"{n}: {p}" for n, p in paths[dtype].items()))
+    for dtype, jitter in LANES_JITTER.items():
         t = lambda a: torch.tensor(a, dtype=dtype, device="cuda")  # noqa: E731
+        # only the lower triangle is read, on both paths: NaN above the
+        # diagonal changes no output
+        for n in (14, 100):
+            g, y = (t(a) for a in se_grams(128, n, seed=5))
+            junk = g.clone()
+            iu = torch.triu_indices(n, n, 1, device="cuda")
+            junk[:, iu[0], iu[1]] = math.nan
+            for kern in (chol_lanes.chol_quadratics_lanes,
+                         chol_lanes.chol_factors_lanes):
+                ref, got = (kern(g, y, jitter=jitter),
+                            kern(junk, y, jitter=jitter))
+                if not _lanes_equal(got, ref):
+                    raise AssertionError(f"{kern.__name__} n={n} {dtype}: "
+                                         f"the upper triangle changed an "
+                                         f"output")
+        log(f"[7] {dtype}: NaN above the diagonal changes no output of "
+            f"either kernel (B=128, n = 14 and 100)")
         # odd members: rank n/2 minus 1e-2 I (a negative pivot, NaN);
-        # even members plus 1e-2 I (finite)
-        r = np.random.default_rng(3)
-        v = r.normal(size=(128, 100, 50))
-        low = v @ np.swapaxes(v, 1, 2) / 100
-        shift = np.where(np.arange(128) % 2 == 1, -1e-2, 1e-2)
-        g = low + shift[:, None, None] * np.eye(100)
-        y = r.normal(size=100)
-        _, ae, nan = _compare_lanes(t(g), t(y), 0.0, f"indefinite {dtype}",
-                                    expect_nan=torch.arange(128) % 2 == 1)
-        abs_errs.append(ae)
-        # exactly rank-deficient, no jitter: NaN wherever roundoff turns a
-        # zero pivot negative, on the same matrices in kernel and twin
-        _, ae, nan_rd = _compare_lanes(t(low), t(y), 0.0,
-                                       f"rank-deficient {dtype}")
-        abs_errs.append(ae)
-        log(f"[7] {dtype}: indefinite batch NaN on the {nan} odd members; "
-            f"rank-deficient batch (jitter 0) NaN on {nan_rd} of 128, the "
-            f"same in kernel and twin")
+        # even members plus 1e-2 I (finite); and the rank-n/2 Grams alone
+        # (no jitter): NaN wherever roundoff turns a zero pivot negative,
+        # on the same matrices in kernel and twin
+        for n in (14, 100):
+            r = np.random.default_rng(3)
+            v = r.normal(size=(128, n, n // 2))
+            low = v @ np.swapaxes(v, 1, 2) / n
+            shift = np.where(np.arange(128) % 2 == 1, -1e-2, 1e-2)
+            g = low + shift[:, None, None] * np.eye(n)
+            y = r.normal(size=n)
+            ae, nan, bad = _compare_lanes(
+                t(g), t(y), 0.0, f"indefinite n={n} {dtype}",
+                expect_nan=torch.arange(128) % 2 == 1)
+            abs_errs.append(ae)
+            unequal += bad
+            ae, nan_rd, bad = _compare_lanes(t(low), t(y), 0.0,
+                                             f"rank-deficient n={n} {dtype}")
+            abs_errs.append(ae)
+            unequal += bad
+            log(f"[7] {dtype} n={n}: indefinite batch NaN on the {nan} odd "
+                f"members; rank-deficient batch (jitter 0) NaN on {nan_rd} "
+                f"of 128, the same in kernel and twin")
+    if unequal:
+        raise AssertionError(f"K3/K4 not bit-equal to the twin on "
+                             f"{len(unequal)} records: {unequal[:8]}")
     return max(abs_errs)
 
 
@@ -1333,6 +1368,131 @@ def k5_panel_sizes():
         _build.library = package
 
 
+LANES_SWEEP_N = (8, 14, 16, 24, 32)
+
+
+def lanes_paths():
+    """Not a phase: K3 and K4 on each of their two paths at n in
+    LANES_SWEEP_N, B = 1728 in f64 (the EB row's batch, jitter 1e-6) and
+    B = 128 in f32 (the MAP cloud's, 1e-3), device time under
+    torch.profiler. Each path is its own build of `csrc/chol_lanes.cu`:
+    -DCCGP_LANES_WARP_MAX_N=32 (the warp path for every n of the sweep)
+    and =0 (the tile path for every n), built in parallel and routed to
+    through `_build.library`; their outputs must equal the package build's
+    bit for bit. The sweep behind WARP_MAX_N in `csrc/chol_lanes.cu`; run
+    it alone with python3 -c 'import chip_smoke as s; s.phase_device();
+    s.phase_build(); s.lanes_paths()'. Last, K3's tile path against K5
+    on the same Grams (B = 16, n = 32 and 100, f32)."""
+    from ccgp_tpu_torch.ops import _build, chol_lanes, chol_smallk
+
+    outs = _build_variants("chol_lanes.cu", {
+        "warp": ["-DCCGP_LANES_WARP_MAX_N=32"],
+        "tiles": ["-DCCGP_LANES_WARP_MAX_N=0"]})
+    names = ("ccgp_chol_lanes_f32", "ccgp_chol_lanes_f64",
+             "ccgp_chol_lanes_layout")
+    variants = {label: _variant(out, names) for label, out in outs.items()}
+    package = _build.library
+    try:
+        for b, dtype in ((1728, torch.float64), (128, torch.float32)):
+            jit = LANES_JITTER[dtype]
+            for n in LANES_SWEEP_N:
+                g, y = (torch.tensor(a, dtype=dtype, device="cuda")
+                        for a in se_grams(b, n, seed=n))
+                for kern in (chol_lanes.chol_quadratics_lanes,
+                             chol_lanes.chol_factors_lanes):
+                    fn = lambda: kern(g, y, jitter=jit)  # noqa: E731
+                    _build.library = package
+                    ref = fn()
+                    times = []
+                    for label, variant in variants.items():
+                        _build.library = lambda: variant  # noqa: E731
+                        if not _lanes_equal(fn(), ref):
+                            raise AssertionError(f"{kern.__name__} on the "
+                                                 f"{label} path moved a bit")
+                        k, how = _kernel_ms(kern.__name__, fn, 20,
+                                            _cuda_ms(fn, 20))
+                        times.append(f"{label} {k:.4f} ms {how}")
+                    log(f"[lanes sweep] {kern.__name__} B={b} n={n} {dtype}: "
+                        + ", ".join(times))
+        # the tile path's pivot policy against K5's, on the same core and
+        # the same Grams (B = K = 16, the most K5 takes; f32): what the
+        # lanes order of arithmetic (a square root and divisions per pivot,
+        # where K5 has rsqrt and products) costs
+        for n in (32, 100):
+            g, y = (torch.tensor(a, dtype=torch.float32, device="cuda")
+                    for a in se_grams(16, n, seed=n))
+            _build.library = lambda: variants["tiles"]  # noqa: E731
+            fn = lambda: chol_lanes.chol_quadratics_lanes(g, y, jitter=1e-3)  # noqa: E731
+            k3, how3 = _kernel_ms("chol_quadratics_lanes", fn, 20,
+                                  _cuda_ms(fn, 20))
+            _build.library = package
+            fn = lambda: chol_smallk.chol_quadratics_smallk(g, y, jitter=1e-3)  # noqa: E731
+            k5, how5 = _kernel_ms("chol_quadratics_smallk", fn, 20,
+                                  _cuda_ms(fn, 20))
+            log(f"[lanes sweep] B=16 n={n} f32, the same Grams on the "
+                f"register-tile core: K3's tile path {k3:.4f} ms {how3}, "
+                f"K5 {k5:.4f} ms {how5}")
+    finally:
+        _build.library = package
+
+
+def _sole_kernel_ms(fn, reps):
+    """(ms, name) of the one kernel each call of fn launches: its device
+    time per call under torch.profiler, from a window that recorded it
+    `reps` times (one retry); (nan, what was seen) otherwise."""
+    for _ in range(2):
+        by_name, _ = _device_profile(fn, reps)
+        if len(by_name) == 1:
+            name, (ms, seen) = next(iter(by_name.items()))
+            if seen == reps:
+                return ms, name
+    return math.nan, f"records lost: {by_name}"
+
+
+def lanes_compare(other):
+    """Not a phase: K3 and K4 at phase 6's shapes (`_lanes_inputs`, from a
+    fit of the bench workload) with the package build and with a build of
+    the `csrc/chol_lanes.cu` at the path `other` (another commit's, with
+    the same C entry points), in turns other, package, package, other in
+    one process: each kernel's device time per call under torch.profiler,
+    and whether the two builds' outputs are equal bit for bit. Run it with
+    python3 -c 'import chip_smoke as s; s.phase_device(); s.phase_build();
+    s.lanes_compare("<other tree>/ccgp_tpu_torch/csrc/chol_lanes.cu")'."""
+    from ccgp_tpu_torch.ops import _build, chol_lanes
+
+    out = _build.BUILD_DIR / "sweep" / "chol_lanes.other.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                      str(out), str(other)]])
+    builds = {"other": _variant(out, ("ccgp_chol_lanes_f32",
+                                      "ccgp_chol_lanes_f64")),
+              "package": _build.library()}
+    x, y, grid = bench_data()
+    fit, _ = _fit_predict(x, y, grid, 7, torch.float32, "cuda", 1e-3,
+                          **BENCH_CFG)
+    grams, ys, jit = _lanes_inputs(fit)
+    package = _build.library
+    try:
+        for name, factors in LANES_TIMED:
+            kern = (chol_lanes.chol_factors_lanes if factors
+                    else chol_lanes.chol_quadratics_lanes)
+            g, yy, j = grams[name], ys[name], jit[name]
+            fn = lambda: kern(g, yy, jitter=j)  # noqa: E731
+            outs, times, knames = {}, [], {}
+            for label in ("other", "package", "package", "other"):
+                _build.library = lambda: builds[label]  # noqa: E731
+                outs[label] = fn()
+                ms, knames[label] = _sole_kernel_ms(fn, 20)
+                times.append(f"{label} {ms:.4f}")
+            log(f"[lanes compare] {kern.__name__} {name} B={g.shape[0]} "
+                f"n={g.shape[-1]} {g.dtype}: device ms per call "
+                f"{' / '.join(times)}; outputs equal: "
+                f"{_lanes_equal(outs['other'], outs['package'])}; kernels "
+                f"{knames['package'][:60]} / {knames['other'][:60]}")
+    finally:
+        _build.library = package
+
+
 # ---------------------------------------------------------------------------
 # the one-round SE routes: the fused round kernel K7 and the fused
 # quadratics kernel K6
@@ -1826,8 +1986,11 @@ def phase_baselines_1d():
 # the wrapper's patterns
 _SYMBOLS = {"threefry_split_chain": (("split_chain_kernel",),),
             "fused_mix_mh_rounds": (("mh_rounds_kernel<",),),
-            "chol_quadratics_lanes": (("chol_lanes_kernel<", ", false>"),),
-            "chol_factors_lanes": (("chol_lanes_kernel<", ", true>"),),
+            # K3 and K4 share two kernels, the factor output a flag
+            "chol_quadratics_lanes": (("lanes_warp_kernel<", ", false>"),
+                                      ("lanes_tiles_kernel<", ", false>")),
+            "chol_factors_lanes": (("lanes_warp_kernel<", ", true>"),
+                                   ("lanes_tiles_kernel<", ", true>")),
             # K5 and K6 share two kernels templated on the entries' source
             "chol_quadratics_smallk": (("chol_quad_tiles_kernel<",
                                         "GramSource<"),
@@ -1996,8 +2159,11 @@ def _library_lanes(g, y, jitter):
 def _lanes_inputs(fit):
     """The lanes kernels' inputs at the main paths' shapes: the MAP cloud's
     and zoom's Grams (B = 128 and 64, n = 100, f32), one EB row's
-    covariances (B = 1728, n = 14, f64) and the lazy predict's first chunk
-    (B = 64 draws of the bench chain, n = 100, f32)."""
+    covariances (B = 1728, n = 14, f64), the lazy predict's first chunk
+    (B = 64 draws of the bench chain, n = 100, f32) and the 1-D fit's
+    factor cache (B = 200, the --fast budget's retained draws, n = 8,
+    f64, jitter 0 as the 1-D fit has it; SE Grams stand in for the
+    chain's Matern mixtures, which need a 1-D fit first)."""
     from ccgp_tpu_torch.eb import halton
     from ccgp_tpu_torch.models.combination import (
         MixParams, MixtureSpec, mixed_gram, unpack)
@@ -2023,14 +2189,58 @@ def _lanes_inputs(fit):
     grams["eb_row"] = s2t[:, None, None] * mixed_gram(iso, xe_t, params) + 1e4
     ys = {"map_cloud": t32(y), "map_zoom": t32(y), "lazy_chunk": t32(y),
           "eb_row": torch.tensor(f2(xe), dtype=torch.float64, device="cuda")}
+    g1, y1 = se_grams(FAST_1D["net_samp_size"], 8, seed=8)
+    grams["factor_cache_1d"] = torch.tensor(g1, device="cuda")
+    ys["factor_cache_1d"] = torch.tensor(y1, device="cuda")
     jit = {"map_cloud": 1e-3, "map_zoom": 1e-3, "lazy_chunk": 1e-3,
-           "eb_row": 0.0}
+           "eb_row": 0.0, "factor_cache_1d": 0.0}
     return grams, ys, jit
+
+
+# (shape, K3 or K4) of phase 6's lanes timings
+LANES_TIMED = (("map_cloud", False), ("map_zoom", False), ("eb_row", False),
+               ("lazy_chunk", True), ("factor_cache_1d", True))
+
+
+def _lanes_timing(fit):
+    """K3 and K4 at `_lanes_inputs`' shapes: device and per-call time, the
+    path the layout gives each shape, the plain twin's time per call, the
+    library route (cholesky_ex + solve_triangular of [y, 1], timed only)
+    and the bound."""
+    from ccgp_tpu_torch.ops import chol_lanes
+
+    out = {}
+    grams, ys, jit = _lanes_inputs(fit)
+    for name, factors in LANES_TIMED:
+        kern, plain = ((chol_lanes.chol_factors_lanes,
+                        chol_lanes.chol_factors_lanes_plain) if factors else
+                       (chol_lanes.chol_quadratics_lanes,
+                        chol_lanes.chol_quadratics_lanes_plain))
+        g, y, j = grams[name], ys[name], jit[name]
+        b, n = g.shape[0], g.shape[-1]
+        fn = lambda: kern(g, y, jitter=j)  # noqa: E731
+        call = _cuda_ms(fn, 20)
+        k, how = _kernel_ms(kern.__name__, fn, 20, call)
+        p = _cuda_ms(lambda: plain(g, y, jitter=j), 3)
+        lib_fn = lambda: _library_lanes(g, y, j)  # noqa: E731
+        lib_call = _cuda_ms(lib_fn, 20)
+        lib, lib_how = _library_ms(lib_fn, 20, lib_call)
+        bound = _lanes_bound(b, n, g.element_size(), factors)
+        group, threads, blocks = chol_lanes.lanes_layout(n, b, g.dtype)
+        path = (f"warp path, {group} lanes per matrix" if group
+                else "tile path") + f", {blocks} blocks of {threads}"
+        log(f"[6] {kern.__name__} {name} B={b} n={n} {g.dtype} ({path}): "
+            f"kernel {k:.4f} ms {how} ({call:.4f} ms per call), plain "
+            f"{p:.3f} ms per call, cholesky_ex+solve_triangular {lib:.4f} "
+            f"ms {lib_how} ({lib_call:.4f} ms per call), bound "
+            f"{bound[0]:.2e} ms ({bound[1]})")
+        out[(kern.__name__, name)] = (k, p, lib, bound)
+    return out
 
 
 def phase_timing(fit):
     from ccgp_tpu_torch.models.combination import mixed_gram, unpack
-    from ccgp_tpu_torch.ops import chol_lanes, chol_smallk, rng
+    from ccgp_tpu_torch.ops import chol_smallk, rng
 
     key = rng.PRNGKey(7, device="cuda")
     out = {}
@@ -2076,32 +2286,7 @@ def phase_timing(fit):
             f"call, cholesky_ex x R {lib:.4f} ms {lib_how} ({lib_call:.3f} "
             f"ms per call), bound {bound[0]:.2e} ms ({bound[1]})")
         out[("fused_mix_mh_rounds", rr)] = (k, p, lib, bound)
-    grams, ys, jit = _lanes_inputs(fit)
-    for name, kern, plain, factors in (
-            ("map_cloud", chol_lanes.chol_quadratics_lanes,
-             chol_lanes.chol_quadratics_lanes_plain, False),
-            ("map_zoom", chol_lanes.chol_quadratics_lanes,
-             chol_lanes.chol_quadratics_lanes_plain, False),
-            ("eb_row", chol_lanes.chol_quadratics_lanes,
-             chol_lanes.chol_quadratics_lanes_plain, False),
-            ("lazy_chunk", chol_lanes.chol_factors_lanes,
-             chol_lanes.chol_factors_lanes_plain, True)):
-        g, y, j = grams[name], ys[name], jit[name]
-        b, n = g.shape[0], g.shape[-1]
-        fn = lambda: kern(g, y, jitter=j)  # noqa: E731
-        call = _cuda_ms(fn, 20)
-        k, how = _kernel_ms(kern.__name__, fn, 20, call)
-        p = _cuda_ms(lambda: plain(g, y, jitter=j), 3)
-        lib_fn = lambda: _library_lanes(g, y, j)  # noqa: E731
-        lib_call = _cuda_ms(lib_fn, 20)
-        lib, lib_how = _library_ms(lib_fn, 20, lib_call)
-        bound = _lanes_bound(b, n, g.element_size(), factors)
-        log(f"[6] {kern.__name__} {name} B={b} n={n} {g.dtype}: kernel "
-            f"{k:.4f} ms {how} ({call:.4f} ms per call), plain "
-            f"{p:.3f} ms per call, cholesky_ex+solve_triangular {lib:.4f} "
-            f"ms {lib_how} ({lib_call:.4f} ms per call), bound "
-            f"{bound[0]:.2e} ms ({bound[1]})")
-        out[(kern.__name__, name)] = (k, p, lib, bound)
+    out.update(_lanes_timing(fit))
     out.update(_smallk_timing())
     out.update(_k8_k9_timing())
     return out

@@ -44,7 +44,8 @@ def assert_close(got, ref, tol=TOL):
 
 
 @pytest.mark.parametrize("b", [64, 130])
-@pytest.mark.parametrize("n", [17, 100, 128])
+# 8: the kernels' warp path; 33: the first n past it
+@pytest.mark.parametrize("n", [8, 17, 33, 100, 128])
 def test_quadratics_twin_matches_pallas_interpret(b, n):
     g, y = grams_batch(b, n, seed=n)
     ref = jlanes.chol_quadratics_lanes(jnp.asarray(g), jnp.asarray(y),
@@ -57,7 +58,7 @@ def test_quadratics_twin_matches_pallas_interpret(b, n):
 
 
 @pytest.mark.parametrize("b", [64, 130])
-@pytest.mark.parametrize("n", [17, 100, 128])
+@pytest.mark.parametrize("n", [8, 17, 33, 100, 128])
 def test_factors_twin_matches_pallas_interpret(b, n):
     g, y = grams_batch(b, n, seed=n + 1)
     ref = jlanes.chol_factors_lanes(jnp.asarray(g), jnp.asarray(y),

@@ -12,10 +12,11 @@ in the same order with explicitly rounded arithmetic, so acceptance flags,
 consumed counts and NaN positions are equal, and records, factors and
 quadratics agree to 1e-4 (float32) and 1e-10 (float64) relative to
 max(1, |value|) — room for the math library's exp / log / rsqrt, which
-may differ from PyTorch's in the last place. K5-K7 are also held bit for
-bit on the shapes where their cores change (n = 127 / 128 / 129) and at
-the cluster core's sizes, as chip_smoke.py's phase 11 holds them, and K8
-at an EB row and the MAP cloud, as phase 14 holds it.
+may differ from PyTorch's in the last place. K3 and K4 are held bit for
+bit on both their paths, as chip_smoke.py's phase 7 holds them; K5-K7
+bit for bit on the shapes where their cores change (n = 127 / 128 / 129)
+and at the cluster core's sizes, as phase 11 holds them, and K8 at an EB
+row and the MAP cloud, as phase 14 holds it.
 """
 import ctypes
 
@@ -180,16 +181,29 @@ def _se_grams(b, n, seed):
     return np.exp(-theta[:, None, None] * d2[None]), r.normal(size=n)
 
 
-@pytest.mark.parametrize("b,n,dtype,jitter,tol", [
-    (128, 100, torch.float32, 1e-3, 1e-4),     # the MAP cloud
-    (64, 100, torch.float32, 1e-3, 1e-4),      # a lazy predict chunk
-    (1728, 14, torch.float64, 1e-6, 1e-10),    # an EB row
-    (130, 17, torch.float32, 1e-3, 1e-4),
-    # f64 at n = 128 needs 134 KB of shared memory: launched only after the
+def _bit_equal(got, ref):
+    """Every output equal bit for bit (+0 and -0 as equal), NaN in the same
+    places."""
+    assert set(got) == set(ref)
+    for k in ref:
+        a, b = got[k].cpu(), ref[k].cpu()
+        assert torch.equal(torch.isnan(a), torch.isnan(b)), k
+        assert torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)), k
+
+
+@pytest.mark.parametrize("b,n,dtype,jitter", [
+    (128, 100, torch.float32, 1e-3),     # the MAP cloud
+    (64, 100, torch.float32, 1e-3),      # a lazy predict chunk
+    (1728, 14, torch.float64, 1e-6),     # an EB row (the warp path)
+    (130, 17, torch.float32, 1e-3),
+    (65, 8, torch.float64, 0.0),         # a part-filled warp group
+    (64, 32, torch.float32, 1e-3),       # the warp path's widest n
+    (64, 33, torch.float64, 1e-6),       # the tile path's narrowest n
+    # f64 at n = 128 takes 74 KB of shared memory: launched only after the
     # opt-in above 48 KB, refused without it
-    (200, 128, torch.float64, 1e-6, 1e-10),
+    (200, 128, torch.float64, 1e-6),
 ])
-def test_chol_lanes_kernels_equal_plain(cuda, b, n, dtype, jitter, tol):
+def test_chol_lanes_kernels_equal_plain(cuda, b, n, dtype, jitter):
     g, y = _se_grams(b, n, seed=b + n)
     g, y = (torch.tensor(a, dtype=dtype, device=cuda) for a in (g, y))
     for kern, plain in ((chol_lanes.chol_quadratics_lanes,
@@ -200,10 +214,7 @@ def test_chol_lanes_kernels_equal_plain(cuda, b, n, dtype, jitter, tol):
         got = kern(g, y, jitter=jitter)
         torch.cuda.synchronize()
         assert kern.launches == before + 1
-        ref = plain(g, y, jitter=jitter)
-        assert set(got) == set(ref)
-        for k in ref:
-            assert _rel(got[k], ref[k]) <= tol, k
+        _bit_equal(got, plain(g, y, jitter=jitter))
     # only the lower triangle is loaded: NaN above the diagonal changes
     # nothing
     iu = torch.triu_indices(n, n, 1, device=cuda)
@@ -211,36 +222,50 @@ def test_chol_lanes_kernels_equal_plain(cuda, b, n, dtype, jitter, tol):
     junk[:, iu[0], iu[1]] = float("nan")
     for kern in (chol_lanes.chol_quadratics_lanes,
                  chol_lanes.chol_factors_lanes):
-        ref, got = kern(g, y, jitter=jitter), kern(junk, y, jitter=jitter)
-        for k in ref:
-            assert torch.equal(got[k], ref[k]), k
+        _bit_equal(kern(junk, y, jitter=jitter), kern(g, y, jitter=jitter))
     # a tensor left on the host is refused, not computed
     with pytest.raises(TypeError):
         chol_lanes.chol_quadratics_lanes(g, y.cpu())
 
 
+@pytest.mark.parametrize("n", [14, 40])   # the warp path, the tile path
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_chol_lanes_nan_on_the_same_matrices(cuda, dtype):
+def test_chol_lanes_nan_on_the_same_matrices(cuda, dtype, n):
     r = np.random.default_rng(3)
-    v = r.normal(size=(64, 40, 20))
-    low = v @ np.swapaxes(v, 1, 2) / 40
+    v = r.normal(size=(64, n, n // 2))
+    low = v @ np.swapaxes(v, 1, 2) / n
     shift = np.where(np.arange(64) % 2 == 1, -1e-2, 1e-2)
-    g = torch.tensor(low + shift[:, None, None] * np.eye(40), dtype=dtype,
+    g = torch.tensor(low + shift[:, None, None] * np.eye(n), dtype=dtype,
                      device=cuda)
-    y = torch.tensor(r.normal(size=40), dtype=dtype, device=cuda)
+    y = torch.tensor(r.normal(size=n), dtype=dtype, device=cuda)
     got = chol_lanes.chol_factors_lanes(g, y)
-    ref = chol_lanes.chol_factors_lanes_plain(g, y)
     nan = ~torch.isfinite(got["logdet"])
     assert torch.equal(nan.cpu(), torch.arange(64) % 2 == 1)
-    tol = 1e-10 if dtype == torch.float64 else 1e-4
-    for k in ref:
-        assert _rel(got[k], ref[k]) <= tol, k
+    _bit_equal(got, chol_lanes.chol_factors_lanes_plain(g, y))
+    # the upper triangle stays exactly 0 even where the factor failed
+    assert torch.equal(torch.triu(got["chol"], 1),
+                       torch.zeros_like(got["chol"]))
+
+
+@pytest.mark.parametrize("n,group,threads", [
+    (1, 8, 64), (8, 8, 64), (9, 16, 64), (16, 16, 64), (17, 32, 64),
+    (32, 32, 64),                        # the warp path: 64 / group a block
+    (33, 0, 64), (100, 0, 512), (128, 0, 1024),   # a block per matrix
+])
+def test_chol_lanes_layout(cuda, n, group, threads):
+    for dtype in (torch.float32, torch.float64):
+        for b in (64, 65, 1728):
+            blocks = -(-b * group // threads) if group else b
+            assert chol_lanes.lanes_layout(n, b, dtype) == (group, threads,
+                                                            blocks)
+    with pytest.raises(RuntimeError):
+        chol_lanes.lanes_layout(129, 64, torch.float32)
 
 
 def test_refused_launch_raises_and_leaves_no_error(cuda):
-    """A launch the card refuses (f64 n = 180 needs 266 KB of shared
-    memory, above the 227 KB a block may have) comes back as an error
-    code, and the next launch is not charged with it."""
+    """A launch the entry point refuses (n = 180, above the 128 the
+    kernels hold) comes back as an error code, and the next launch is not
+    charged with it."""
     lib = _build.library()
     n, b = 180, 2
     g = torch.eye(n, dtype=torch.float64, device=cuda).expand(b, n, n)
