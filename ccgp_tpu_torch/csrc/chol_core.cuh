@@ -84,6 +84,19 @@ template <> struct Ar<double> {
   static __device__ __forceinline__ double sqrt_(double a) { return __dsqrt_rn(a); }
 };
 
+// x / d for the square root d of a pivot (K3, K4 and K9): a zero x gives
+// x itself where d > 0 (IEEE's +-0 / d) and is not divided, since a zero
+// dividend fails the division's fast-path test (in f64 the dividend's
+// exponent must clear a threshold) and takes the whole warp down the slow
+// path; d / d is divided in its place, NaN where d is 0 or NaN, as x / d
+// is.
+template <typename T>
+__device__ __forceinline__ T div_pivot(T x, T d) {
+  const bool zero = x == T(0);
+  const T q = Ar<T>::div(zero ? d : x, d);
+  return zero && d > T(0) ? x : q;
+}
+
 // The block's view of one factorization: the workspace (M, then RY, RO,
 // WY, WO, DINV, each K x n) and the per-matrix accumulators in shared
 // memory (s_dinv double-buffered by pivot: 2 x MAX_K).

@@ -114,18 +114,6 @@ struct LanesArgs {
 // n <= WARP_MAX_N: a matrix per group of G lanes, in registers
 // ---------------------------------------------------------------------------
 
-// x / d for the square root d of a pivot: a zero x gives x itself where
-// d > 0 (IEEE's +-0 / d) and is not divided, since a zero dividend fails
-// the division's fast-path test (in f64 the dividend's exponent must clear
-// a threshold) and takes the whole warp down the slow path; d / d is
-// divided in its place, NaN where d is 0 or NaN, as x / d is.
-template <typename T>
-__device__ __forceinline__ T div_pivot(T x, T d) {
-  const bool zero = x == T(0);
-  const T q = Ar<T>::div(zero ? d : x, d);
-  return zero && d > T(0) ? x : q;
-}
-
 template <typename T, int G, bool FACTORS>
 __global__ void __launch_bounds__(WARP_THREADS)
     lanes_warp_kernel(const LanesArgs<T> a) {

@@ -10,7 +10,9 @@ its p-value reaches alpha_geweke, after n_max records or after
 max_proposals proposals.
 
 Three drivers over one random stream (round r: `key, k1, k2 =
-split(key, 3)`, then `normal(k1, (K, dim))` and `log(uniform(k2, (K,)))`):
+split(key, 3)`, then `normal(k1, (K, dim))` and `log(uniform(k2, (K,)))`),
+which they take only from `ops.rng.chunk_draws` (one launch on the card
+per chunk, or per round):
 
 * the K = 1 body (`speculative` <= 1, `body` in JAX): one proposal per
   round through `logpost`;
@@ -21,8 +23,8 @@ split(key, 3)`, then `normal(k1, (K, dim))` and `log(uniform(k2, (K,)))`):
   kernel for SE/SE);
 * the chunked driver (`mh_rounds`, K > 1, record="accepted"): each loop
   iteration runs a CHUNK of rounds through `mh_rounds` (one launch of the
-  fused rounds kernel on the card), with the chunk's keys from
-  `ops.rng.threefry_split_chain`. Three phases batch the SAME rounds:
+  fused rounds kernel on the card), with the chunk's keys and draws
+  from `ops.rng.chunk_draws`. Three phases batch the SAME rounds:
   check-free 120-round warm chunks while no Geweke boundary is reachable,
   check-free 20-round chunks, then the check-aware tail. Caps and the
   Geweke stop truncate a chunk to the prefix of rounds that the one-round
@@ -158,20 +160,22 @@ def _one_round(logpost, z0, key, fit, n_max, samp_size, batch_size,
     k_rec = n_prop = n_acc = n_rnd = 0
     pv = 0.0
     while k_rec < n_max and pv < alpha_geweke and n_prop < max_proposals:
-        ch = rng.split(key, 3)
-        key, k1, k2 = ch[0], ch[1], ch[2]
+        # the round's keys and draws in one call; normal(k1, (K, dim)) and
+        # uniform(k2, (K,)) hash the flat counters that K = 1's (dim,) and
+        # () shapes hash
+        key, eps, log_u = rng.chunk_draws(key, 1, K, dim, dtype)
         if K == 1:
-            cand = z + prop_chol @ rng.normal(k1, (dim,), dtype)
+            cand = z + prop_chol @ eps.reshape(dim)
             lp_c = logpost(cand)
-            log_u = torch.log(rng.uniform(k2, (), dtype))
+            log_u = log_u.reshape(())
             accept = (lp_c.val - lpv) > log_u
             z = torch.where(accept, cand, z)
             lpv = torch.where(accept, lp_c.val, lpv)
             lpb = torch.where(accept, lp_c.beta, lpb)
             consumed = 1
         else:
-            cands = z[None, :] + rng.normal(k1, (K, dim), dtype) @ prop_chol.T
-            log_u = torch.log(rng.uniform(k2, (K,), dtype))
+            cands = z[None, :] + eps.reshape(K, dim) @ prop_chol.T
+            log_u = log_u.reshape(K)
             if mh_round is not None:
                 zc, vc, bc, accept, consumed = mh_round(z, lpv, lpb, cands,
                                                         log_u)
@@ -226,9 +230,7 @@ def _chunked(logpost, z0, key, fit, n_max, samp_size, batch_size,
          "lpv": lp0.val, "lpb": lp0.beta}
 
     def chunk(rr: int, check: bool):
-        key, k1s, k2s = rng.threefry_split_chain(s["key"], rr)
-        eps = rng.normal(k1s, (K, dim), dtype)               # (rr, K, dim)
-        log_u = torch.log(rng.uniform(k2s, (K,), dtype))     # (rr, K)
+        key, eps, log_u = rng.chunk_draws(s["key"], rr, K, dim, dtype)
         deltas = eps.reshape(rr * K, dim) @ prop_chol.T
         out = mh_rounds(s["z"], s["lpv"], s["lpb"], deltas, log_u)
         flags = torch.stack([out["acc"].to(torch.int64),

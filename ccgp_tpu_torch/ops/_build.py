@@ -42,6 +42,9 @@ _D = ctypes.c_double
 # C entry points: name -> argtypes (restype is always int)
 _SIGNATURES = {
     "ccgp_threefry_split_chain": [_P, _P, _P, _P, _I, _P],
+    # key, new_key, eps, log_u, rr, K, dim, stream
+    "ccgp_chunk_draws_f32": [_P] * 4 + [_I] * 3 + [_P],
+    "ccgp_chunk_draws_f64": [_P] * 4 + [_I] * 3 + [_P],
     # x, y, z, st, deltas, log_u, rec, info, stash, ws, model, n, d, dim,
     # R, K, jitter, stream
     "ccgp_mh_rounds_f32": [_P] * 11 + [_I] * 5 + [_D, _P],

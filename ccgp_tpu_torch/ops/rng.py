@@ -16,9 +16,11 @@ left shift. The layouts are those of jax 0.9 with
                          split and a stable sort by 32 random bits
 
 `threefry_split_chain` runs rr sequential `key, k1, k2 = split(key, 3)`
-steps: the chunked Metropolis driver's per-round keys. On a CUDA tensor it
-launches `csrc/threefry_split_chain.cu`; on a CPU tensor it runs the plain
-version below.
+steps. `chunk_draws` runs the same steps and makes each round's draws from
+them, `normal(k1, (K, dim))` and `log(uniform(k2, (K,)))`: the whole random
+stream of the Metropolis drivers, a chunk (or one round) per call. On a
+CUDA tensor each launches its kernel in `csrc/threefry_split_chain.cu`; on
+a CPU tensor it runs the plain version below.
 """
 from __future__ import annotations
 
@@ -197,3 +199,56 @@ def threefry_split_chain(key: torch.Tensor, rr: int):
 
 
 threefry_split_chain.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# a chunk's keys and draws: the sampler's random stream in one launch
+# ---------------------------------------------------------------------------
+
+_DRAW_DTYPES = (torch.float32, torch.float64)
+
+
+def chunk_draws_plain(key: torch.Tensor, rr: int, K: int, dim: int,
+                      dtype=torch.float64):
+    """rr rounds of the Metropolis drivers' random stream in plain PyTorch:
+    `key, k1, k2 = split(key, 3)` per round, then the round's proposal
+    normals `normal(k1, (K, dim))` and log-uniforms `log(uniform(k2,
+    (K,)))`. Returns (new_key (2,), eps (rr, K, dim), log_u (rr, K))."""
+    key, k1s, k2s = threefry_split_chain_plain(key, rr)
+    eps = normal(k1s, (K, dim), dtype)
+    log_u = torch.log(uniform(k2s, (K,), dtype))
+    return key, eps, log_u
+
+
+def chunk_draws(key: torch.Tensor, rr: int, K: int, dim: int,
+                dtype=torch.float64):
+    """`chunk_draws_plain` as ONE launch of `csrc/threefry_split_chain.cu`
+    on a CUDA key (bit-equal to the plain version on the card); the plain
+    version on a CPU key."""
+    _check_key(key)
+    rr, K, dim = int(rr), int(K), int(dim)
+    if rr < 1 or K < 1 or dim < 1:
+        raise ValueError("rr, K and dim must be >= 1")
+    if K * dim >= 1 << 24:   # a key segment's 128 rounds index in int32
+        raise NotImplementedError("2**24 or more draws per round")
+    if dtype not in _DRAW_DTYPES:
+        raise TypeError(f"chunk_draws makes float32 or float64, got {dtype}")
+    if key.device.type == "cpu":
+        return chunk_draws_plain(key, rr, K, dim, dtype)
+    if key.device.type != "cuda":
+        raise ValueError(f"unsupported device {key.device}")
+    key = key.contiguous()
+    new_key = torch.empty(2, dtype=torch.int64, device=key.device)
+    eps = torch.empty((rr, K, dim), dtype=dtype, device=key.device)
+    log_u = torch.empty((rr, K), dtype=dtype, device=key.device)
+    lib = _build.library()
+    fn = (lib.ccgp_chunk_draws_f32 if dtype == torch.float32
+          else lib.ccgp_chunk_draws_f64)
+    chunk_draws.launches += 1
+    _build.check(fn(_build.ptr(key), _build.ptr(new_key), _build.ptr(eps),
+                    _build.ptr(log_u), rr, K, dim,
+                    _build.stream(key.device)), "chunk_draws")
+    return new_key, eps, log_u
+
+
+chunk_draws.launches = 0

@@ -8,8 +8,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      its name and `nvidia-smi`'s name and power limit;
   2. build the CUDA kernels from `ccgp_tpu_torch/csrc` (one nvcc per
      source, in parallel; sm_90a);
-  3. the threefry key-chain kernel against its plain PyTorch version:
-     integer equality;
+  3. K2: the threefry key-chain kernel against its plain PyTorch version
+     (integer equality), and the fused keys-and-draws kernel
+     (`chunk_draws`, the samplers' whole random stream) against its plain
+     version bit for bit, with the count of bit-equal records: rr in {1,
+     7, 120} x K in {1, 4, 16} x dim in {1, 4, 9} x f32 and f64 x 3 seeds,
+     and the paths' shapes (the bench chunks, the 1-D round); 2^20
+     normals and log-uniforms per dtype; then a report of how many of
+     `rng.normal`'s values part between the CPU and the card on the same
+     keys, and by how many ulps;
   4. the fused Metropolis-rounds kernel (K1, one thread-block cluster)
      against its plain version on the same inputs: equal acceptance flags
      and consumed counts, NaN stash rows in the same places, records and
@@ -56,7 +63,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      `predict_combined_gp` with phase 5's key: the same chain, and
      predictions that match phase 5's stash path;
   6. each kernel's time next to its plain version's and a library call's
-     at the main paths' shapes (K3 at the MAP cloud and zoom and an EB
+     at the main paths' shapes (K2 at the bench's chunks, rr = 120 and 20,
+     and the 1-D round, rr = 1, beside the split chain alone, the plain
+     draws it replaced per chunk in host wall and device time, and its
+     two bounds: the roofline and the chain's serial floor; K3 at the MAP cloud and zoom and an EB
      row, K4 at a lazy-predict chunk and the 1-D factor cache, each with
      the path it took; K5 at the 1-D round and at n = 100, 256,
      512 and 1024, K6 and K7 at the bench's one-round shape, K6 at n = 256,
@@ -78,7 +88,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      `body_spec` (K6) chains, which must agree.
 
  14. K9 (`chol_nll`, behind `chol_quadratics(use_pallas=True)`) against
-     its plain version over B in {1, 4, 32, 128} x n in {14, 33, 100,
+     its plain version bit for bit, with the count of bit-equal records,
+     over B in {1, 4, 32, 128} x n in {1, 8, 9, 14, 17, 33, 100, 127,
      128}, and K8 (`fused_mix_quadratics`) over B in {1, 5, 128, 1728} x
      n in {14, 26, 100, 128} x d in {1, 2, 9, 16} x scale and shift
      scalar or per lane x jitter {0, 1e-8}, f32 and f64; indefinite
@@ -101,7 +112,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      against CPU within phase 12's 1e-7.
 
 Every path (5, 8, 9, 10, 12, 13, 15, 16) runs with all launch counters set
-to 0 just before it and read just after; each must launch its kernels. The
+to 0 just before it and read just after; each must launch its kernels
+(K2's fused kernel once per chunk, 38 in the bench fit, and once per round
+on the one-round and 1-D routes). The
 last lines are a JSON object of kernel records (K1-K9), the card's name and
 power limit, and `{"ok": true, "device": {...}}`.
 """
@@ -160,7 +173,31 @@ def phase_build():
         f"{time.perf_counter() - t0:.1f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
 
 
+# phase 3's grid for the fused keys-and-draws kernel, then the shapes of
+# the paths: the bench chunk and the 1-D round
+DRAWS_GRID = [(rr, kk, dim, dtype) for dtype in (torch.float32, torch.float64)
+              for rr in (1, 7, 120) for kk in (1, 4, 16) for dim in (1, 4, 9)]
+DRAWS_PATHS = [(120, 4, 4, torch.float32), (20, 4, 4, torch.float32),
+               (1, 4, 1, torch.float64), (1, 4, 4, torch.float32)]
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in units in the last place of b, per element."""
+    a, b = a.double(), b.to(a.device)
+    ulp = torch.nextafter(b.abs(), torch.tensor(math.inf, dtype=b.dtype,
+                                               device=b.device)) - b.abs()
+    return (a - b.double()).abs() / ulp.double()
+
+
 def phase_rng():
+    """K2: the split chain and the fused keys-and-draws kernel against
+    their plain versions, integer- and bit-equal; 2^20 normals and
+    log-uniforms per dtype; then a report of where the CPU's normals part
+    from the card's on the same keys."""
     from ccgp_tpu_torch.ops import rng
 
     err = 0
@@ -176,6 +213,66 @@ def phase_rng():
                     f"threefry_split_chain differs at seed={seed} rr={rr}")
     log("[3] threefry_split_chain == plain (integers) for rr in "
         "{1,7,20,24,25,120} x seeds {0,7,123456789}")
+
+    nbit, total = {}, {}
+    for rr, kk, dim, dtype in DRAWS_GRID + DRAWS_PATHS:
+        for seed in (0, 7, 123456789):
+            key = rng.PRNGKey(seed, device="cuda")
+            got = rng.chunk_draws(key, rr, kk, dim, dtype)
+            ref = rng.chunk_draws_plain(key, rr, kk, dim, dtype)
+            torch.cuda.synchronize()
+            eq = (torch.equal(got[0], ref[0])
+                  and all(g.shape == r.shape and torch.equal(_bits(g), _bits(r))
+                          for g, r in zip(got[1:], ref[1:])))
+            nbit[dtype] = nbit.get(dtype, 0) + eq
+            total[dtype] = total.get(dtype, 0) + 1
+            if not eq:
+                diff = max(float(_ulps(g, r).max())
+                           for g, r in zip(got[1:], ref[1:]))
+                raise AssertionError(
+                    f"chunk_draws differs from its plain version at rr={rr} "
+                    f"K={kk} dim={dim} {dtype} seed={seed} (keys equal: "
+                    f"{torch.equal(got[0], ref[0])}, up to {diff:g} ulps)")
+    log(f"[3] chunk_draws == plain bit for bit: f32 {nbit[torch.float32]} "
+        f"of {total[torch.float32]} records, f64 {nbit[torch.float64]} of "
+        f"{total[torch.float64]} (rr in {{1,7,120}} x K in {{1,4,16}} x dim "
+        f"in {{1,4,9}} x 3 seeds, and the paths' shapes (120, 4, 4) f32, "
+        f"(20, 4, 4) f32, (1, 4, 1) f64, (1, 4, 4) f32)")
+    # erfinv and log as PyTorch's CUDA kernels compute them: 2^20 each
+    for dtype in (torch.float32, torch.float64):
+        key = rng.PRNGKey(2024, device="cuda")
+        got = rng.chunk_draws(key, 16, 1 << 16, 1, dtype)
+        ref = rng.chunk_draws_plain(key, 16, 1 << 16, 1, dtype)
+        for what, g, r in (("normals", got[1], ref[1]),
+                           ("log-uniforms", got[2], ref[2])):
+            if not torch.equal(_bits(g), _bits(r)):
+                raise AssertionError(
+                    f"chunk_draws {what} {dtype}: "
+                    f"{int((_bits(g) != _bits(r)).sum())} of 2^20 differ")
+    log("[3] chunk_draws: 2^20 normals and 2^20 log-uniforms per dtype "
+        "bit-equal to torch.special.erfinv and torch.log on the card")
+
+    # a report, not a check: the CPU's normals (its erfinv) against the
+    # card's on the same keys; the CPU path stays held to JAX
+    for dtype in (torch.float32, torch.float64):
+        key = rng.PRNGKey(2024, device="cpu")
+        _, k1s, _ = rng.threefry_split_chain_plain(key, 16)
+        cpu = rng.normal(k1s, (1 << 16,), dtype)
+        gpu = rng.normal(k1s.cuda(), (1 << 16,), dtype).cpu()
+        ulps = _ulps(cpu, gpu)
+        nz = ulps > 0
+        lo = float(torch.nextafter(torch.tensor(-1.0, dtype=dtype),
+                                   torch.tensor(0.0, dtype=dtype)))
+        u = rng.uniform(k1s, (1 << 16,), dtype, lo, 1.0)
+        ug = rng.uniform(k1s.cuda(), (1 << 16,), dtype, lo, 1.0)
+        ecpu = torch.special.erfinv(u)
+        egpu = torch.special.erfinv(ug).cpu()
+        log(f"[3] rng.normal on the CPU vs the card, same keys, {dtype}: "
+            f"{int(nz.sum())} of {cpu.numel()} values differ, by up to "
+            f"{float(ulps.max()):g} ulps (median of those "
+            f"{float(ulps[nz].median()) if bool(nz.any()) else 0.0:g}); "
+            f"the uniforms are equal: {torch.equal(u, ug.cpu())}; "
+            f"erfinv of them differs on {int((ecpu != egpu).sum())}")
     return float(err)
 
 
@@ -372,6 +469,7 @@ def _counted():
         chol_lanes, chol_nll, chol_smallk, gram_chol, rng)
 
     return {"threefry_split_chain": rng.threefry_split_chain,
+            "chunk_draws": rng.chunk_draws,
             "fused_mix_mh_rounds": chol_smallk.fused_mix_mh_rounds,
             "chol_quadratics_lanes": chol_lanes.chol_quadratics_lanes,
             "chol_factors_lanes": chol_lanes.chol_factors_lanes,
@@ -403,6 +501,7 @@ BENCH_CFG = dict(n_max=5000, samp_size=1000, net_samp_size=1000)
 # recorded / proposals / rounds of the bench chain (key 7, f32), the same
 # on the card in every run since the port began
 BENCH_CHAIN = (1340, 4763, 1844)
+BENCH_CHUNKS = 38   # its chunks: one launch of chunk_draws and of K1 each
 FULL_BAYES_CALLS = 5
 
 
@@ -434,8 +533,12 @@ def phase_main_path():
     if chain != BENCH_CHAIN:
         raise AssertionError(f"the bench chain moved: {chain}, expected "
                              f"{BENCH_CHAIN}")
-    _require_launched(launches, ("threefry_split_chain",
-                                 "fused_mix_mh_rounds"), "full-Bayes path")
+    _require_launched(launches, ("chunk_draws", "fused_mix_mh_rounds"),
+                      "full-Bayes path")
+    if (launches["chunk_draws"], launches["fused_mix_mh_rounds"]) != (
+            BENCH_CHUNKS, BENCH_CHUNKS):
+        raise AssertionError(f"the bench fit must draw and run its rounds "
+                             f"in {BENCH_CHUNKS} chunks: {launches}")
 
     # timed runs (same key, so the same chain), CUDA events: the spread of
     # FULL_BAYES_CALLS calls, the median as the time
@@ -818,7 +921,7 @@ def phase_lazy(fit, pred):
     if launches["chol_factors_lanes"] != 16:
         raise AssertionError("1000 draws in chunks of 64 must be 16 launches")
     _require_launched(launches, ("chol_factors_lanes", "fused_mix_mh_rounds",
-                                 "threefry_split_chain"), "lazy path")
+                                 "chunk_draws"), "lazy path")
     if not max(errs.values()) <= LAZY_RTOL:
         raise AssertionError(f"lazy predict vs stash path: {errs}")
     predict = lambda: predict_combined_gp(  # noqa: E731
@@ -1157,6 +1260,9 @@ def phase_1d():
             f"{cpu_ms:.1f} ms on the CPU (host clock); launches={launches}")
         if K > 1 and launches["chol_quadratics_smallk"] != mg.n_rounds:
             raise AssertionError(f"{label}: K5 must launch once per round")
+        if launches["chunk_draws"] != mg.n_rounds:
+            raise AssertionError(f"{label}: chunk_draws must launch once per "
+                                 f"round")
         _require_launched(launches, ("chol_factors_lanes",), label)
         paths[label] = launches
     return paths
@@ -1449,48 +1555,219 @@ def _sole_kernel_ms(fn, reps):
     return math.nan, f"records lost: {by_name}"
 
 
-def lanes_compare(other):
-    """Not a phase: K3 and K4 at phase 6's shapes (`_lanes_inputs`, from a
-    fit of the bench workload) with the package build and with a build of
-    the `csrc/chol_lanes.cu` at the path `other` (another commit's, with
-    the same C entry points), in turns other, package, package, other in
-    one process: each kernel's device time per call under torch.profiler,
-    and whether the two builds' outputs are equal bit for bit. Run it with
-    python3 -c 'import chip_smoke as s; s.phase_device(); s.phase_build();
-    s.lanes_compare("<other tree>/ccgp_tpu_torch/csrc/chol_lanes.cu")'."""
-    from ccgp_tpu_torch.ops import _build, chol_lanes
+def _k9_cases():
+    """(label, Grams, y, jitter) of K9's timings: the MAP cloud (B = 128,
+    n = 100, f32, jitter 1e-3) and B = 128 SE Grams at n = 128 in f64
+    (jitter 1e-6, the most shared memory)."""
+    mp, map_grams = map_cloud_inputs()
+    g, y = (torch.tensor(a, dtype=torch.float64, device="cuda")
+            for a in se_grams(128, 128, seed=128))
+    return [("map_cloud B=128 n=100 f32", map_grams(), mp["y"], 1e-3),
+            ("B=128 n=128 f64", g, y, 1e-6)]
 
-    out = _build.BUILD_DIR / "sweep" / "chol_lanes.other.so"
+
+K9_BLOCK_SIZES = (256, 512, 1024)
+
+
+def k9_block_sizes():
+    """Not a phase: K9 at each block size of K9_BLOCK_SIZES (a build of
+    `csrc/chol_nll.cu` with -DCCGP_K9_THREADS=<size> each, built in
+    parallel and routed to through `_build.library`) at `_k9_cases`'
+    shapes, device time under torch.profiler; each build's outputs must
+    equal the package build's bit for bit. The sweep behind NLL_THREADS in
+    `csrc/chol_nll.cu`; run it alone with python3 -c 'import chip_smoke as
+    s; s.phase_device(); s.phase_build(); s.k9_block_sizes()'."""
+    from ccgp_tpu_torch.ops import _build, chol_nll
+
+    outs = _build_variants("chol_nll.cu", {
+        f"{t} threads": [f"-DCCGP_K9_THREADS={t}"] for t in K9_BLOCK_SIZES})
+    variants = {label: _variant(out, ("ccgp_chol_nll_f32",
+                                      "ccgp_chol_nll_f64"))
+                for label, out in outs.items()}
+    package = _build.library
+    try:
+        for label, g, y, jit in _k9_cases():
+            fn = lambda: chol_nll.chol_nll(g, y, jitter=jit)  # noqa: E731
+            _build.library = package
+            ref = fn()
+            times = []
+            for size, variant in variants.items():
+                _build.library = lambda: variant  # noqa: E731
+                if not _lanes_equal(fn(), ref):
+                    raise AssertionError(f"K9 at {size} moved a bit")
+                k, how = _kernel_ms("chol_nll", fn, 20, _cuda_ms(fn, 20))
+                times.append(f"{size} {k:.4f} ms {how}")
+            log(f"[k9 sweep] chol_nll {label}: " + ", ".join(times))
+    finally:
+        _build.library = package
+
+
+def k9_clock_split():
+    """Not a phase: where K9's time goes, from a build of `csrc/chol_nll.cu`
+    with -DCCGP_K9_CLOCKS, whose block 0 records clock64 spans: the load,
+    the first top block, the steps' span, and the busy cycles of warp 0
+    (the pivots' chain: the next top rows, the next top block's sums and
+    its factorization), warp 1 (the partial sums), warp 2 (the solve: its
+    downdate, the in-panel recursion, the running sums) and the first row
+    warp, each summed over the steps; at `_k9_cases`' shapes, the outputs bit-equal to the package build's. Run it alone
+    with python3 -c 'import chip_smoke as s; s.phase_device();
+    s.phase_build(); s.k9_clock_split()'."""
+    import ctypes
+
+    from ccgp_tpu_torch.ops import _build, chol_nll
+
+    out = _build_variants("chol_nll.cu", {"clocks": ["-DCCGP_K9_CLOCKS"]})
+    lib = _variant(out["clocks"], ("ccgp_chol_nll_f32", "ccgp_chol_nll_f64"))
+    lib.ccgp_k9_clocks.argtypes = [ctypes.c_void_p]
+    mhz, _ = _sm_clock_mhz()
+    package = _build.library
+    try:
+        for label, g, y, jit in _k9_cases():
+            _build.library = package
+            ref = chol_nll.chol_nll(g, y, jitter=jit)
+            _build.library = lambda: lib  # noqa: E731
+            got = chol_nll.chol_nll(g, y, jitter=jit)
+            torch.cuda.synchronize()
+            if not _lanes_equal(got, ref):
+                raise AssertionError("the clocks build moved a bit")
+            buf = (ctypes.c_longlong * 15)()
+            _build.check(lib.ccgp_k9_clocks(ctypes.addressof(buf)),
+                         "k9_clocks")
+            us = [v / mhz for v in buf]
+            log(f"[k9 clocks] {label}, block 0, us at {mhz:g} MHz: load "
+                f"{us[0]:.2f}, first top block {us[1]:.2f}, steps "
+                f"{us[2]:.2f}; busy in the steps: warp 0 (pivots) next top "
+                f"rows {us[3]:.2f}, next top block's sums {us[4]:.2f}, its "
+                f"factorization {us[5]:.2f}; warp 1 (partial sums) "
+                f"{us[6]:.2f}; warp 2 (solve) downdate {us[9]:.2f}, "
+                f"in-panel {us[10]:.2f}, running sums {us[11]:.2f}; first "
+                f"row warp {us[12]:.2f}")
+    finally:
+        _build.library = package
+
+
+def _compare_turns(source, names, other, cases):
+    """Each case's kernel with the package build and with a build of the
+    `source` at the path `other` (another commit's, with the same C entry
+    points `names`), in turns other, package, package, other in one
+    process: device ms per call under torch.profiler, and whether the two
+    builds' outputs are equal bit for bit. cases: (label, fn)."""
+    from ccgp_tpu_torch.ops import _build
+
+    out = _build.BUILD_DIR / "sweep" / f"{source}.other.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
                       str(out), str(other)]])
-    builds = {"other": _variant(out, ("ccgp_chol_lanes_f32",
-                                      "ccgp_chol_lanes_f64")),
-              "package": _build.library()}
+    builds = {"other": _variant(out, names), "package": _build.library()}
+    package = _build.library
+    try:
+        for label, fn in cases:
+            outs, times, knames = {}, [], {}
+            for turn in ("other", "package", "package", "other"):
+                _build.library = lambda: builds[turn]  # noqa: E731
+                outs[turn] = fn()
+                ms, knames[turn] = _sole_kernel_ms(fn, 20)
+                times.append(f"{turn} {ms:.4f}")
+            log(f"[compare] {label}: device ms per call {' / '.join(times)}; "
+                f"outputs equal: {_lanes_equal(outs['other'], outs['package'])}"
+                f"; kernels {knames['package'][:60]} / "
+                f"{knames['other'][:60]}")
+    finally:
+        _build.library = package
+
+
+def compare_builds(other):
+    """Not a phase: K3/K4 at phase 6's shapes (`_lanes_inputs`, from a fit
+    of the bench workload) and K9 at `_k9_cases`' shapes, each with the
+    package build and with the build of the same source in the tree at
+    `other` (another commit's checkout), by `_compare_turns`. Run it with
+    python3 -c 'import chip_smoke as s; s.phase_device(); s.phase_build();
+    s.compare_builds("<other tree>")' (unpack the other commit with `git
+    archive` into `chip_check/`, which `.gitignore` lists)."""
+    from pathlib import Path
+
+    from ccgp_tpu_torch.ops import chol_lanes, chol_nll
+
+    csrc = Path(other) / "ccgp_tpu_torch" / "csrc"
     x, y, grid = bench_data()
     fit, _ = _fit_predict(x, y, grid, 7, torch.float32, "cuda", 1e-3,
                           **BENCH_CFG)
     grams, ys, jit = _lanes_inputs(fit)
-    package = _build.library
-    try:
-        for name, factors in LANES_TIMED:
-            kern = (chol_lanes.chol_factors_lanes if factors
-                    else chol_lanes.chol_quadratics_lanes)
-            g, yy, j = grams[name], ys[name], jit[name]
-            fn = lambda: kern(g, yy, jitter=j)  # noqa: E731
-            outs, times, knames = {}, [], {}
-            for label in ("other", "package", "package", "other"):
-                _build.library = lambda: builds[label]  # noqa: E731
-                outs[label] = fn()
-                ms, knames[label] = _sole_kernel_ms(fn, 20)
-                times.append(f"{label} {ms:.4f}")
-            log(f"[lanes compare] {kern.__name__} {name} B={g.shape[0]} "
-                f"n={g.shape[-1]} {g.dtype}: device ms per call "
-                f"{' / '.join(times)}; outputs equal: "
-                f"{_lanes_equal(outs['other'], outs['package'])}; kernels "
-                f"{knames['package'][:60]} / {knames['other'][:60]}")
-    finally:
-        _build.library = package
+    cases = []
+    for name, factors in LANES_TIMED:
+        kern = (chol_lanes.chol_factors_lanes if factors
+                else chol_lanes.chol_quadratics_lanes)
+        g, yy, j = grams[name], ys[name], jit[name]
+        cases.append((f"{kern.__name__} {name} B={g.shape[0]} "
+                      f"n={g.shape[-1]} {g.dtype}",
+                      lambda kern=kern, g=g, yy=yy, j=j: kern(g, yy, jitter=j)))
+    _compare_turns("chol_lanes.cu", ("ccgp_chol_lanes_f32",
+                                     "ccgp_chol_lanes_f64"),
+                   csrc / "chol_lanes.cu", cases)
+    _compare_turns("chol_nll.cu", ("ccgp_chol_nll_f32", "ccgp_chol_nll_f64"),
+                   csrc / "chol_nll.cu",
+                   [(f"chol_nll {label}",
+                     lambda g=g, y=y, j=j: chol_nll.chol_nll(g, y, jitter=j))
+                    for label, g, y, j in _k9_cases()])
+
+
+def e2e_times(tag, phases=("5", "13", "12")):
+    """Not a phase: the end-to-end times of the full-Bayes path (phase 5's
+    workload, FULL_BAYES_CALLS calls after one to warm up, CUDA events),
+    the one-round SE route (phase 13's, host clock) and both 1-D models at
+    K = 4 (phase 12's, host clock), each with its chain, through the
+    package that `import ccgp_tpu_torch` finds: no launch counter is read,
+    so another commit's package can be timed by this function. Run a
+    checkout's package with this file from its root: python3 -c 'import
+    importlib.util as u; s = u.spec_from_file_location("cs",
+    "<this file>"); m = u.module_from_spec(s); s.loader.exec_module(m);
+    m.phase_device(); m.e2e_times("<tag>")'."""
+    from ccgp_tpu_torch.models import combined_gp
+
+    x, y, grid = bench_data()
+    if "5" in phases:
+        _fit_predict(x, y, grid, 7, torch.float32, "cuda", 1e-3, **BENCH_CFG)
+        times = []
+        for _ in range(FULL_BAYES_CALLS):
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            ev0.record()
+            fit, _ = _fit_predict(x, y, grid, 7, torch.float32, "cuda", 1e-3,
+                                  **BENCH_CFG)
+            ev1.record()
+            torch.cuda.synchronize()
+            times.append(ev0.elapsed_time(ev1))
+        mc = fit.mcmc
+        log(f"[e2e {tag}] full-Bayes: median {float(np.median(times)):.1f} "
+            f"ms (each: {', '.join(f'{t:.1f}' for t in times)}); chain "
+            f"{mc.n_recorded} / {mc.n_proposals} / {mc.n_rounds}")
+    if "13" in phases:
+        combined_gp.MH_ROUNDS_CHUNKING = False
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit, _ = _fit_predict(x, y, grid, 7, torch.float32, "cuda", 1e-3,
+                                  **BENCH_CFG)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            combined_gp.MH_ROUNDS_CHUNKING = True
+        mc = fit.mcmc
+        log(f"[e2e {tag}] one-round SE: {ms:.1f} ms ({1e3 * ms / mc.n_rounds:.1f}"
+            f" us/round); chain {mc.n_recorded} / {mc.n_proposals} / "
+            f"{mc.n_rounds}")
+    if "12" in phases:
+        for name in ("sim_1d", "sim_1d_two_families"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit, _, _, _ = fit_predict_1d(name, 4, "cuda")
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            mc = fit.mcmc
+            log(f"[e2e {tag}] {name} K=4: {ms:.1f} ms ({ms / mc.n_rounds:.2f}"
+                f" ms/round); chain {mc.n_recorded} / {mc.n_proposals} / "
+                f"{mc.n_rounds}")
 
 
 # ---------------------------------------------------------------------------
@@ -1538,6 +1815,8 @@ def phase_one_round():
         raise AssertionError("one-round path: phase 5's guards not met")
     if launches["fused_mix_mh_round"] != mc.n_rounds:
         raise AssertionError("K7 must launch once per round")
+    if launches["chunk_draws"] != mc.n_rounds:
+        raise AssertionError("chunk_draws must launch once per round")
     paths["one-round bench"] = launches
 
     # small f64: the chunked (K1), body_mh (K7) and body_spec (K6) chains
@@ -1623,6 +1902,12 @@ def k8_case(b, n, d, dtype, seed, per_lane):
     return args
 
 
+# K9's shapes in phase 14: one panel (n = 1, 8), a last panel of one
+# column (9, 17), of six (14) and of seven (127), one row below the top
+# rows (17), the MAP cloud's n and the limit
+K9_N = (1, 8, 9, 14, 17, 33, 100, 127, 128)
+
+
 def phase_k8_k9():
     """K9 and K8 against their plain twins on every listed shape, NaN
     batches, the upper triangle, the limits."""
@@ -1633,9 +1918,9 @@ def phase_k8_k9():
     for dtype, jitter in ((torch.float32, 1e-3), (torch.float64, 1e-6)):
         tol = F32_RTOL if dtype == torch.float32 else F64_RTOL
         t = lambda a: torch.tensor(a, dtype=dtype, device="cuda")  # noqa: E731
-        errs, bit = [], True
+        errs, nbit = [], 0
         for b in (1, 4, 32, 128):
-            for n in (14, 33, 100, 128):
+            for n in K9_N:
                 g, y = (t(a) for a in se_grams(b, n, seed=b + n))
                 got = chol_nll.chol_nll(g, y, jitter=jitter)
                 ref = chol_nll.chol_nll_plain(g, y, jitter=jitter)
@@ -1644,7 +1929,11 @@ def phase_k8_k9():
                                            f"K9 B={b} n={n} {dtype}")
                 errs.append(e)
                 abs9 = max(abs9, ae)
-                bit = bit and eq
+                nbit += eq
+                if not eq:
+                    raise AssertionError(f"K9 B={b} n={n} {dtype}: not "
+                                         f"bit-equal to the plain version "
+                                         f"(rel err {e:.3g})")
         g, y = (t(a) for a in se_grams(128, 100, seed=5))
         iu = torch.triu_indices(100, 100, 1, device="cuda")
         junk = g.clone()
@@ -1655,17 +1944,18 @@ def phase_k8_k9():
             raise AssertionError("K9: the upper triangle changed an output")
         g, y = (t(a) for a in indefinite_batch())
         got = chol_nll.chol_nll(g, y)
-        _, ae, _ = _compare_quads(got, chol_nll.chol_nll_plain(g, y), tol,
-                                  f"K9 indefinite {dtype}")
+        _, ae, eq = _compare_quads(got, chol_nll.chol_nll_plain(g, y), tol,
+                                   f"K9 indefinite {dtype}")
         abs9 = max(abs9, ae)
+        if not eq:
+            raise AssertionError(f"K9 indefinite {dtype}: not bit-equal")
         if not torch.equal(~torch.isfinite(got["logdet"]).cpu(),
                            torch.arange(16) % 2 == 1):
             raise AssertionError("K9: NaN on the wrong members")
-        log(f"[14] K9 chol_nll == plain for B in {{1,4,32,128}} x n in "
-            f"{{14,33,100,128}}, {dtype}: max rel err {max(errs):.3g} (tol "
-            f"{tol:g}); bit-equal: {bit}; NaN above the diagonal changes no "
-            f"output; an indefinite batch is NaN on its 8 odd members in "
-            f"kernel and twin")
+        log(f"[14] K9 chol_nll == plain bit for bit: {nbit} of {len(errs)} "
+            f"records (B in {{1,4,32,128}} x n in {K9_N}), {dtype}; NaN "
+            f"above the diagonal changes no output; an indefinite batch is "
+            f"NaN on its 8 odd members in kernel and twin, bit-equal")
 
         errs, nbit, seen = [], 0, 0
         for b in (1, 5, 128, 1728):
@@ -1928,8 +2218,8 @@ def phase_study():
     if not (err_z <= STUDY_RTOL and err_p <= STUDY_RTOL
             and err_s <= STUDY_RTOL):
         raise AssertionError("study: GPU and CPU disagree")
-    _require_launched(launches, ("fused_mix_mh_rounds",
-                                 "threefry_split_chain"), "study path")
+    _require_launched(launches, ("fused_mix_mh_rounds", "chunk_draws"),
+                      "study path")
     for k in JAX_ANISO_RMSPE:
         if not (abs(sg.rmspe[k] - JAX_ANISO_RMSPE[k]) <= 5e-5
                 and abs(sg.coverage[k] - JAX_ANISO_COVERAGE[k]) <= 5e-4):
@@ -1985,6 +2275,7 @@ def phase_baselines_1d():
 # them: a name is the wrapper's when it holds every substring of one of
 # the wrapper's patterns
 _SYMBOLS = {"threefry_split_chain": (("split_chain_kernel",),),
+            "chunk_draws": (("chunk_draws_kernel<",),),
             "fused_mix_mh_rounds": (("mh_rounds_kernel<",),),
             # K3 and K4 share two kernels, the factor output a flag
             "chol_quadratics_lanes": (("lanes_warp_kernel<", ", false>"),
@@ -2238,24 +2529,246 @@ def _lanes_timing(fit):
     return out
 
 
+# K2's work per threefry block on the card: 20 rounds of an add, a rotate
+# (one funnel shift) and an xor, 5 key injections of three adds, the key
+# schedule's xor and the two first adds; the unit float's shift, or and
+# subtraction. A normal adds its scale, shift and clamp and an erfinv, a
+# log-uniform its log: erfinv counted as 30 operations and log as 20 (the
+# CUDA math library's polynomial and range reduction), in the draw's type
+THREEFRY_OPS = 80
+ERFINV_OPS, LOG_OPS = 30, 20
+
+
+def _k2_bound(rr, kk, dim, elem):
+    """(ms, what bounds it) for rr rounds of keys and draws: the key read
+    and the new key, eps and log_u written once; the threefry blocks (3 per
+    split, one per draw) at the int32 rate and the floating-point work at
+    the vector rate of the type."""
+    draws = rr * kk * dim + rr * kk
+    nbytes = 16 + 16 + elem * draws
+    ints = THREEFRY_OPS * (3 * rr + draws) + 3 * draws
+    floats = rr * kk * dim * (4 + ERFINV_OPS) + rr * kk * (2 + LOG_OPS)
+    return _bound(nbytes, (ints, PEAK_OPS["int32"]), (floats, PEAK_VEC[elem]))
+
+
+_LATENCY_SRC = r"""
+// One thread, a chain of dependent 32-bit integer operations as threefry's
+// rounds have them (y = rotl(y) ^ (x += y): an add, then an xor that waits
+// for it; the rotate runs beside the add), timed by clock64.
+#include <cuda_runtime.h>
+__global__ void dep_loop(unsigned a, unsigned b, long long* out,
+                         unsigned* sink, int iters) {
+  unsigned x = a, y = b;
+  const long long t0 = clock64();
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      x += y;
+      y = __funnelshift_l(y, y, 13) ^ x;
+    }
+  }
+  const long long t1 = clock64();
+  out[0] = t1 - t0;
+  sink[0] = x ^ y;
+}
+extern "C" int ccgp_dep_latency(void* out, void* sink, int iters,
+                                void* stream) {
+  dep_loop<<<1, 1, 0, (cudaStream_t)stream>>>(1u, 2u, (long long*)out,
+                                              (unsigned*)sink, iters);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def dependent_issue_cycles(iters=4096):
+    """Not a phase: the card's latency of one dependent 32-bit integer
+    operation, in cycles, from a clock64 loop of iters x 16 steps of two
+    dependent operations (`_LATENCY_SRC`, built here with the package's
+    nvcc flags)."""
+    import ctypes
+
+    from ccgp_tpu_torch.ops import _build
+
+    src = _build.BUILD_DIR / "sweep" / "dep_latency.cu"
+    out = src.with_suffix(".so")
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(_LATENCY_SRC)
+    _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                      str(out), str(src)]])
+    lib = ctypes.CDLL(str(out))
+    lib.ccgp_dep_latency.argtypes = [ctypes.c_void_p] * 2 + [
+        ctypes.c_int, ctypes.c_void_p]
+    cyc = torch.zeros(1, dtype=torch.int64, device="cuda")
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    best = math.inf
+    for _ in range(5):
+        _build.check(lib.ccgp_dep_latency(cyc.data_ptr(), sink.data_ptr(),
+                                          iters, _build.stream(cyc.device)),
+                     "dep_latency")
+        torch.cuda.synchronize()
+        best = min(best, int(cyc.item()) / (iters * 16 * 2))
+    return best
+
+
+def chain_sass_depth():
+    """Not a phase: the dependent instructions on the critical path of one
+    split in `chunk_draws_kernel<float>`'s chain loop, read from
+    `cuobjdump -sass` of csrc/threefry_split_chain.cu built with the
+    package's flags. The loop (not unrolled) is the innermost one around
+    the store of the round's keys to shared memory (STS.128); each
+    instruction's depth is one more than its deepest source register's
+    within the body, and the registers the body does not write (the carry,
+    the constants) are depth 0. Returns (depth, instructions in the body)."""
+    import re
+    import shutil
+    import tempfile
+
+    from ccgp_tpu_torch.ops import _build
+
+    nvcc = _build._nvcc()
+    cuobjdump = shutil.which("cuobjdump") or str(
+        __import__("pathlib").Path(nvcc).parent / "cuobjdump")
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        cubin = f"{tmp}/k2.cubin"
+        _build._run_all([[nvcc, *_build.NVCC_FLAGS, "-cubin", "-o", cubin,
+                          str(_build.SRC_DIR / "threefry_split_chain.cu")]])
+        sass = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True,
+                              text=True, check=True).stdout
+    func = None
+    body = []
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            func = m.group(1)
+            continue
+        if func and "chunk_draws_kernelIf" in func:
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+            if m:
+                body.append((int(m.group(1), 16), m.group(2).strip()))
+    if not body:
+        raise RuntimeError("chain_sass_depth: chunk_draws_kernel<float> not "
+                           "found in the SASS")
+    sts = [a for a, ins in body if "STS.128" in ins]
+    loops = []
+    for a, ins in body:
+        m = re.search(r"BRA\s+(?:`\(\S+\)\s*)?0x([0-9a-f]+)", ins)
+        if m and int(m.group(1), 16) < a:
+            lo = int(m.group(1), 16)
+            if any(lo <= x <= a for x in sts):
+                loops.append((a - lo, lo, a))
+    if not loops:
+        raise RuntimeError("chain_sass_depth: no loop around the key store")
+    _, lo, hi = min(loops)
+    depth, deepest, count = {}, 0, 0
+    for a, ins in body:
+        if not lo <= a <= hi:
+            continue
+        ins = re.sub(r"^@!?U?P\w+\s+", "", ins)
+        op, _, rest = ins.partition(" ")
+        args = [a.strip() for a in rest.split(",")]
+        dest = re.fullmatch(r"(U?R\d+)(\.reuse)?", args[0]) if args else None
+        if dest is None or op.startswith(("ST", "BRA", "BAR", "RED", "ATOM")):
+            continue
+        srcs = re.findall(r"\bU?R\d+\b", ",".join(args[1:]))
+        d = 1 + max([depth.get(r, 0) for r in srcs], default=0)
+        depth[dest.group(1)] = d
+        deepest = max(deepest, d)
+        count += 1
+    return deepest, count
+
+
+def _sm_clock_mhz():
+    """nvidia-smi's SM clock read while a spin kernel keeps the card busy,
+    and its maximum."""
+    torch.cuda._sleep(3_000_000_000)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    torch.cuda.synchronize()
+    now, top = (float(v) for v in smi.split(","))
+    return now, top
+
+
+def k2_serial_floor():
+    """(ms per split, how it was read): the chain's dependent instructions
+    per split (`chain_sass_depth`) x the latency of a dependent operation
+    (`dependent_issue_cycles`) at the SM clock nvidia-smi reads under load.
+    rr dependent splits take at least rr times this. Run it alone with
+    python3 -c 'import chip_smoke as s; s.phase_device(); s.phase_build();
+    print(s.k2_serial_floor())'."""
+    depth, count = chain_sass_depth()
+    cycles = dependent_issue_cycles()
+    mhz, top = _sm_clock_mhz()
+    return depth * cycles / (mhz * 1e3), (
+        f"{depth} dependent instructions per split (of {count} in the loop "
+        f"body, cuobjdump -sass) x {cycles:.2f} cycles each (clock64 loop) "
+        f"at {mhz:g} MHz (nvidia-smi under load; max {top:g})")
+
+
+K2_TIMED = (("bench", 120, 4, 4, torch.float32),
+            ("bench", 20, 4, 4, torch.float32),
+            ("1-D round", 1, 4, 1, torch.float64))
+
+
+def _k2_timing():
+    """K2 at the paths' shapes: the fused kernel (device and per-call time),
+    its plain version per call, the split chain alone (the kernel before
+    the draws were fused in), and the plain draws the kernel replaced on
+    the card, per chunk, in host wall time and in device time; the two
+    bounds: the roofline over the fused work and the chain's serial
+    floor."""
+    from ccgp_tpu_torch.ops import rng
+
+    out = {}
+    key = rng.PRNGKey(7, device="cuda")
+    per_split, floor_how = k2_serial_floor()
+    for label, rr, kk, dim, dtype in K2_TIMED:
+        fn = lambda: rng.chunk_draws(key, rr, kk, dim, dtype)  # noqa: E731
+        call = _cuda_ms(fn, 50)
+        k, how = _kernel_ms("chunk_draws", fn, 50, call)
+        p = _cuda_ms(lambda: rng.chunk_draws_plain(key, rr, kk, dim, dtype), 3)
+        chain = lambda: rng.threefry_split_chain(key, rr)  # noqa: E731
+        ck, chow = _kernel_ms("threefry_split_chain", chain, 50,
+                              _cuda_ms(chain, 50))
+        _, k1s, k2s = rng.threefry_split_chain(key, rr)
+        if rr > 1:   # the chunked driver's draws after the chain kernel
+            replaced = lambda: (rng.normal(k1s, (kk, dim), dtype),  # noqa: E731
+                                torch.log(rng.uniform(k2s, (kk,), dtype)))
+        else:        # a one-round body's split and draws
+            def replaced():
+                ch = rng.split(key, 3)
+                return (rng.normal(ch[1], (kk, dim), dtype),
+                        torch.log(rng.uniform(ch[2], (kk,), dtype)))
+        replaced()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            replaced()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 20
+        by_name, _ = _device_profile(replaced, 5)
+        busy = sum(v[0] for v in by_name.values())
+        nk = sum(v[1] for v in by_name.values()) / 5
+        bound = _k2_bound(rr, kk, dim, torch.finfo(dtype).bits // 8)
+        floor = rr * per_split
+        log(f"[6] chunk_draws {label} rr={rr} K={kk} dim={dim} {dtype}: "
+            f"kernel {k:.4f} ms {how} ({call:.4f} ms per call); the split "
+            f"chain alone {ck:.4f} ms {chow}; plain {p:.3f} ms per call; the "
+            f"plain draws it replaced {wall:.4f} ms per chunk of host wall "
+            f"time, {busy:.4f} ms of device time in {nk:g} kernels; bounds: "
+            f"roofline {bound[0]:.2e} ms ({bound[1]}), serial floor "
+            f"{floor:.4f} ms ({floor_how}); the {'serial floor' if floor > bound[0] else 'roofline'} bounds")
+        out[("chunk_draws", rr)] = (k, p, None, bound)
+        out[("chunk_draws floor", rr)] = floor
+    return out
+
+
 def phase_timing(fit):
     from ccgp_tpu_torch.models.combination import mixed_gram, unpack
-    from ccgp_tpu_torch.ops import chol_smallk, rng
+    from ccgp_tpu_torch.ops import chol_smallk
 
-    key = rng.PRNGKey(7, device="cuda")
-    out = {}
-    for rr in (120, 20):
-        fn = lambda: rng.threefry_split_chain(key, rr)  # noqa: E731
-        call = _cuda_ms(fn, 50)
-        k, how = _kernel_ms("threefry_split_chain", fn, 50, call)
-        p = _cuda_ms(lambda: rng.threefry_split_chain_plain(key, rr), 3)
-        # key in, new key and 2 rr child keys out (int64 words); ~120
-        # uint32 operations per threefry block, 3 blocks per split
-        bound = _bound(16 * (2 + 2 * rr), (360 * rr, PEAK_OPS["int32"]))
-        log(f"[6] threefry_split_chain rr={rr}: kernel {k:.4f} ms {how} "
-            f"({call:.4f} ms per call), plain {p:.3f} ms per call, "
-            f"bound {bound[0]:.2e} ms ({bound[1]})")
-        out[("threefry_split_chain", rr)] = (k, p, None, bound)
+    out = _k2_timing()
     for rr in (120, 20):
         args = _rounds_case(100, rr, torch.float32, 1e-3, seed=rr)
         fn = lambda: chol_smallk.fused_mix_mh_rounds(**args)  # noqa: E731
@@ -2454,6 +2967,19 @@ def _record(name, source, replaces, launches, err, timed):
             "bound_by": bound_by, "library_ms": lib}
 
 
+def _k2_record(launches, err, times):
+    """K2's record with its two bounds: `bound_ms`, the roofline over the
+    fused work, and `serial_floor_ms`, the key chain's serial floor;
+    `bound` names the larger, the one that bounds."""
+    rec = _record("chunk_draws", "ccgp_tpu_torch/csrc/threefry_split_chain.cu",
+                  "ccgp_tpu/ops/pallas_rng.py:122", launches, err,
+                  times[("chunk_draws", 120)])
+    floor = times[("chunk_draws floor", 120)]
+    rec.update(serial_floor_ms=floor,
+               bound="serial_floor" if floor > rec["bound_ms"] else "roofline")
+    return rec
+
+
 def main() -> int:
     name, smi = phase_device()
     phase_build()
@@ -2481,11 +3007,7 @@ def main() -> int:
     launches = {k: sum(c[k] for c in paths.values()) for k in _counted()}
     log(f"[launches] per path: {paths}")
     kernels = [
-        _record("threefry_split_chain",
-                "ccgp_tpu_torch/csrc/threefry_split_chain.cu",
-                "ccgp_tpu/ops/pallas_rng.py:122",
-                launches["threefry_split_chain"], rng_err,
-                times[("threefry_split_chain", 120)]),
+        _k2_record(launches["chunk_draws"], rng_err, times),
         _record("fused_mix_mh_rounds", "ccgp_tpu_torch/csrc/mh_rounds.cu",
                 "ccgp_tpu/ops/pallas_chol_smallk.py:1357",
                 launches["fused_mix_mh_rounds"], rounds_err,

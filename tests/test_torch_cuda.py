@@ -6,7 +6,8 @@ run them there without the conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Tolerances: the threefry chain is integer-exact. The rounds kernel and
+Tolerances: the threefry chain is integer-exact, and the fused keys-and-
+draws kernel (`chunk_draws`) bit-equal to its plain version. The rounds kernel and
 the batched Cholesky kernels (K3-K9) run their plain versions' operations
 in the same order with explicitly rounded arithmetic, so acceptance flags,
 consumed counts and NaN positions are equal, and records, factors and
@@ -15,8 +16,9 @@ max(1, |value|) — room for the math library's exp / log / rsqrt, which
 may differ from PyTorch's in the last place. K3 and K4 are held bit for
 bit on both their paths, as chip_smoke.py's phase 7 holds them; K5-K7
 bit for bit on the shapes where their cores change (n = 127 / 128 / 129)
-and at the cluster core's sizes, as phase 11 holds them, and K8 at an EB
-row and the MAP cloud, as phase 14 holds it.
+and at the cluster core's sizes, as phase 11 holds them, K8 at an EB
+row and the MAP cloud and K9 on every shape, with NaN on the same
+members, as phase 14 holds them.
 """
 import ctypes
 
@@ -57,6 +59,44 @@ def test_split_chain_kernel_equals_plain(cuda, rr):
     assert rng.threefry_split_chain.launches == before + 1
     for g, r in zip(got, rng.threefry_split_chain_plain(key, rr)):
         assert torch.equal(g, r)
+
+
+def _bits(t):
+    """A float tensor's bit patterns (bit-equality, -0 apart from +0)."""
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rr", [1, 7, 120, 300])   # 300: three key segments
+def test_chunk_draws_kernel_bit_equal(cuda, rr, dtype):
+    """The fused keys-and-draws kernel against its plain version, bit for
+    bit, over K in {1, 4, 16} x dim in {1, 4, 9} x three seeds, one launch
+    per call."""
+    for seed in (0, 7, 123456789):
+        key = rng.PRNGKey(seed, device=cuda)
+        for kk in (1, 4, 16):
+            for dim in (1, 4, 9):
+                before = rng.chunk_draws.launches
+                got = rng.chunk_draws(key, rr, kk, dim, dtype)
+                torch.cuda.synchronize()
+                assert rng.chunk_draws.launches == before + 1
+                ref = rng.chunk_draws_plain(key, rr, kk, dim, dtype)
+                assert torch.equal(got[0], ref[0])
+                for g, r in zip(got[1:], ref[1:]):
+                    assert g.shape == r.shape and g.dtype == r.dtype
+                    assert torch.equal(_bits(g), _bits(r))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chunk_draws_erfinv_and_log_over_2_20_inputs(cuda, dtype):
+    """The kernel's erfinv and log are PyTorch's on the card: 2^20 normals
+    and 2^20 log-uniforms bit-equal to the plain version's."""
+    key = rng.PRNGKey(2024, device=cuda)
+    got = rng.chunk_draws(key, 16, 1 << 16, 1, dtype)
+    ref = rng.chunk_draws_plain(key, 16, 1 << 16, 1, dtype)
+    for g, r in zip(got[1:], ref[1:]):
+        assert g.numel() == 1 << 20
+        assert torch.equal(_bits(g), _bits(r))
 
 
 def _rounds_args(cuda, n, rr, kk, dtype, indefinite=False, jeffreys=False):
@@ -588,6 +628,9 @@ def test_fused_mix_quadratics_smallk_nan_bit_equal(cuda, n, dtype):
     (1, 128, torch.float64),       # 133 KB of shared memory after the opt-in
     (32, 14, torch.float32),
     (5, 1, torch.float64),
+    (3, 9, torch.float32),         # a last panel of one column
+    (2, 17, torch.float64),        # a panel of one row below the top rows
+    (7, 127, torch.float32),       # a last panel of seven columns
 ])
 def test_chol_nll_equals_plain(cuda, b, n, dtype):
     g, y = _se_grams(b, n, seed=b + n)
@@ -597,8 +640,7 @@ def test_chol_nll_equals_plain(cuda, b, n, dtype):
     got = chol_nll.chol_nll(g, y, jitter=jitter)
     torch.cuda.synchronize()
     assert chol_nll.chol_nll.launches == before + 1
-    _quads_equal(got, chol_nll.chol_nll_plain(g, y, jitter=jitter),
-                 _tol(dtype))
+    _bit_equal(got, chol_nll.chol_nll_plain(g, y, jitter=jitter))
     iu = torch.triu_indices(n, n, 1, device=cuda)
     junk = g.clone()
     junk[:, iu[0], iu[1]] = float("nan")
@@ -621,7 +663,7 @@ def test_chol_nll_nan_on_the_same_members(cuda, dtype):
     got = chol_nll.chol_nll(g, y)
     nan = ~torch.isfinite(got["logdet"])
     assert torch.equal(nan.cpu(), torch.arange(16) % 2 == 1)
-    _quads_equal(got, chol_nll.chol_nll_plain(g, y), _tol(dtype))
+    _bit_equal(got, chol_nll.chol_nll_plain(g, y))
 
 
 @pytest.mark.parametrize("b,n,d,dtype,per_lane", [
