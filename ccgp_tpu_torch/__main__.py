@@ -4,10 +4,13 @@
     python -m ccgp_tpu_torch <experiment> [--fast] [--seed N] [--cpu]
                              [--f64] [--speculative K]
 
-Experiments: sim_1d, sim_1d_two_families, sim_2d_iso, sim_2d_aniso. The
-study runs on the CUDA device unless --cpu is given (without a GPU it
-fails rather than fall back); --f64 runs it in float64 on either device.
-Prints the RMSPE, coverage and calibration lines of the JAX CLI.
+Experiments: sim_1d, sim_1d_two_families, sim_2d_iso, sim_2d_aniso,
+batch_me_design (which reads the reference's `Initial ME Design.txt`
+under the data root, CCGP_DATA_ROOT). The study runs on the CUDA device
+unless --cpu is given (without a GPU it fails rather than fall back);
+--f64 runs it in float64 on either device. Prints the RMSPE, coverage and
+calibration lines of the JAX CLI (for batch_me_design, those of its
+21-point refit, then the second-batch design).
 """
 from __future__ import annotations
 
@@ -60,7 +63,7 @@ def main(argv=None) -> int:
     out = mod.run(cfg, key=rng.PRNGKey(args.seed, device=device),
                   dtype=torch.float64 if args.f64 else torch.float32,
                   device=device)
-    s = out.summary
+    s = out.study.summary if hasattr(out, "study") else out.summary
     print("RMSPE:     ",
           " | ".join(f"{k} {v:.4f}" for k, v in s.rmspe.items()))
     if s.coverage:
@@ -68,6 +71,11 @@ def main(argv=None) -> int:
               " | ".join(f"{k} {v:.3f}" for k, v in s.coverage.items()))
     if s.average_quantile is not None:
         print(f"calibration quantile: {s.average_quantile:.3f} (ideal 0.5)")
+    if hasattr(out, "d_second"):
+        import numpy as np
+
+        print("second-batch design:")
+        print(np.round(np.asarray(out.d_second), 4))
     return 0
 
 

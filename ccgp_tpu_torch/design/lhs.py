@@ -1,9 +1,11 @@
-"""Latin hypercube designs (port of `ccgp_tpu/design/lhs.py:11-39`): the
-reference's `lhs::randomLHS` and a best-of-k maximin stand-in for
-`lhs::optimumLHS`. Both follow the JAX package's key order, so a key gives
-the same design bit for bit: split(key) -> (kp, ku), uniform(ku, (n, d)),
-split(kp, d), one `rng.permutation` per column. `optimum_lhs` is not
-ported yet (ROADMAP queue 1, with `batch_me_design`).
+"""Latin hypercube designs (port of `ccgp_tpu/design/lhs.py`): the
+reference's `lhs::randomLHS`, a best-of-k maximin stand-in and
+`optimum_lhs`, the columnwise-pairwise swap search that takes the place of
+`lhs::optimumLHS` for the design searches' starts. All follow the JAX
+package's key order, so a key gives the same design bit for bit:
+split(key) -> (kp, ku), uniform(ku, (n, d)), split(kp, d), one
+`rng.permutation` per column; every entry is (perm + u) / n and a swap
+search only moves entries within a column.
 """
 from __future__ import annotations
 
@@ -40,3 +42,40 @@ def maximin_lhs(key: torch.Tensor, n: int, d: int, n_candidates: int = 32,
     designs = torch.stack([random_lhs(k, n, d, dtype)
                            for k in rng.split(key, n_candidates)])
     return designs[torch.argmax(_min_dist(designs))]
+
+
+def _s_criterion(x: torch.Tensor) -> torch.Tensor:
+    """The S-criterion of each design (..., n, d): the sum of inverse
+    squared pairwise distances over the ordered pairs (minimize)."""
+    n = x.shape[-2]
+    d2 = torch.sum((x[..., :, None, :] - x[..., None, :, :]) ** 2, dim=-1)
+    d2 = d2 + torch.eye(n, dtype=x.dtype, device=x.device)  # diagonal: n
+    return torch.sum(1.0 / d2, dim=(-2, -1)) - n
+
+
+def optimum_lhs(key: torch.Tensor, n: int, d: int, max_sweeps: int = 2,
+                dtype=torch.float64) -> torch.Tensor:
+    """Columnwise-pairwise swap-optimized LHS: from `random_lhs`, column by
+    column, apply the best S-criterion-improving swap of two entries until
+    the column improves no more or n swaps were made; `max_sweeps` passes
+    over the columns. Every swap of a column (the n (n - 1) / 2 pairs in
+    `triu_indices` order) is scored as one batch and the first best
+    taken, a steepest-descent form of R's serial first-improvement walk."""
+    x = random_lhs(key, n, d, dtype)
+    ii, jj = torch.triu_indices(n, n, offset=1, device=x.device)
+    pairs = torch.arange(ii.shape[0], device=x.device)
+    # row p of `swapped` reorders a column by swapping entries ii[p], jj[p]
+    swapped = torch.arange(n, device=x.device).repeat(ii.shape[0], 1)
+    swapped[pairs, ii] = jj
+    swapped[pairs, jj] = ii
+    for _ in range(max_sweeps):
+        for c in range(d):
+            for _ in range(n):
+                cands = x.repeat(ii.shape[0], 1, 1)
+                cands[:, :, c] = x[:, c][swapped]
+                scores = _s_criterion(cands)
+                b = int(torch.argmin(scores))
+                if not bool(scores[b] < _s_criterion(x)):
+                    break
+                x = cands[b]
+    return x

@@ -1,1 +1,2 @@
-"""Evaluation helpers (port of parts of `ccgp_tpu/eval`)."""
+"""Evaluation helpers (port of `ccgp_tpu/eval`: the test functions, the
+comparison summary and the reference data loaders)."""

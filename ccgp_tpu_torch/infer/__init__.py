@@ -1,1 +1,2 @@
-
+from ccgp_tpu_torch.infer.diagnostics import (
+    effective_sample_size, gelman_rubin)

@@ -21,8 +21,14 @@ of the backend:
     else the batched log-posterior, whose K Grams go to the small-K
     kernel), and the cache is rebuilt;
   * speculative <= 1: the K = 1 body.
+whiten=True (the cancellation-free quadratic, `models/likelihood.py`)
+keeps the chunked driver but takes none of the fused kernels and no
+stash, as JAX turns them off (`ccgp_tpu/models/combined_gp.py:171-172`):
+the rounds loop over the whitened batched log-posterior and
+`build_factors` rebuilds the cache (the lanes factor kernel K4 from 64
+draws on).
 Both entry points run on the GPU unless device="cpu" is asked for, and
-move their inputs there. Not ported yet: whiten=True.
+move their inputs there.
 """
 from __future__ import annotations
 
@@ -114,8 +120,6 @@ def fit_combined_gp(
     still stashes as usual, so the chain is the same. The fit keeps y and
     jitter, so `predict_combined_gp` rebuilds the factors draw_chunk
     draws at a time by itself."""
-    if whiten:
-        raise NotImplementedError("whiten is not ported")
     dev = resolve(device)
     x = torch.as_tensor(x, device=dev)
     y = torch.as_tensor(y, dtype=x.dtype, device=dev)
@@ -130,7 +134,7 @@ def fit_combined_gp(
     s2 = mle.sigma2 if sigma2 is None else torch.as_tensor(
         sigma2, dtype=x.dtype, device=x.device)
     priors = dict(theta1_prior=theta1_prior, theta2_prior=theta2_prior,
-                  p_prior=p_prior)
+                  p_prior=p_prior, whiten=whiten)
     logpost = make_logpost(spec, x, y, s2, jitter=jitter, **priors)
 
     n_train = x.shape[-2]
@@ -140,7 +144,7 @@ def fit_combined_gp(
     if K and K > 1:
         if (MH_ROUNDS_CHUNKING and is_se_mix(spec)
                 and mcmc.record == "accepted"):
-            use_stash = dispatch_ok(n_train, K)
+            use_stash = not whiten and dispatch_ok(n_train, K)
             if use_stash:
                 row_bytes = (n_train + 2) * n_train * x.element_size()
                 slack = ROUNDS_PER_CALL_WARM + 1

@@ -7,6 +7,16 @@
 
 A singular R gives NaN, and a NaN or infinite log-posterior becomes -inf:
 the sampler rejects it. No exception is raised.
+
+whiten=True computes the quadratic (y - beta 1)' R^-1 (y - beta 1) by
+whitening the centred residual with one more triangular solve, instead of
+the bordered identity qyy - qoy^2 / qoo, whose two large near-equal sums
+cancel in float32 at n >= 768 when y is far from centred
+(`scripts/verify_whiten_oracle.py`). Like JAX
+(`ccgp_tpu/models/likelihood.py:273-276,421-423`), it opts out of every
+fused kernel (K1, K6, K7), whose factorization cores accumulate the
+bordered sums: the batched evaluator factors explicitly, and the rounds
+run as a loop over it.
 """
 from __future__ import annotations
 
@@ -74,14 +84,29 @@ def _finite_or_neg_inf(val: torch.Tensor) -> torch.Tensor:
                        torch.full_like(val, -math.inf))
 
 
+def whitened_quadratics(r: torch.Tensor, y: torch.Tensor, jitter=0.0):
+    """(logdet, beta, quad) of a batch of Grams r (K, n, n) by whitening:
+    one `cholesky_ex`, the solves of y and 1 for beta = 1'R^-1 y /
+    1'R^-1 1, then a third solve of the residual y - beta centred before
+    it is whitened (`wy - beta wo` would lose the digits whiten keeps);
+    quad = |L^-1 (y - beta)|^2."""
+    kk, n = r.shape[0], r.shape[-1]
+    chol = linalg.jitter_cholesky(r, jitter)
+    wy = linalg.tri_solve(chol, torch.broadcast_to(y, (kk, n)))
+    wo = linalg.tri_solve(chol, torch.ones((kk, n), dtype=y.dtype,
+                                           device=y.device))
+    beta = torch.sum(wo * wy, dim=-1) / torch.sum(wo * wo, dim=-1)
+    w = linalg.tri_solve(chol, y[None, :] - beta[:, None])
+    return linalg.chol_logdet(chol), beta, torch.sum(w * w, dim=-1)
+
+
 def make_logpost(spec: MixtureSpec, x: torch.Tensor, y: torch.Tensor,
                  sigma2, theta1_prior=None, theta2_prior=None, p_prior=None,
                  jitter: float = 0.0, whiten: bool = False):
     """logpost(z) -> LogPost for unconstrained z (differentiable: Laplace
     takes its gradient and Hessian). One bordered factorization gives the
-    factor, logdet and every quadratic form."""
-    if whiten:
-        raise NotImplementedError("whiten=True is not ported yet")
+    factor, logdet and every quadratic form; whiten=True adds the solve of
+    the centred residual y - beta for the quadratic."""
     n = y.shape[-1]
 
     def logpost(z: torch.Tensor) -> LogPost:
@@ -89,7 +114,11 @@ def make_logpost(spec: MixtureSpec, x: torch.Tensor, y: torch.Tensor,
         r = mixed_gram(spec, x, params)
         q = linalg.bordered_cholesky_quadratics(r, y, jitter)
         beta = q["qoy"] / q["qoo"]
-        quad = q["qyy"] - q["qoy"] ** 2 / q["qoo"]
+        if whiten:
+            w = linalg.tri_solve(q["chol"], y - beta[..., None])
+            quad = torch.sum(w * w, dim=-1)
+        else:
+            quad = q["qyy"] - q["qoy"] ** 2 / q["qoo"]
         _, _, s = mix_weights(params.p)
         log_scale = torch.log(s * sigma2)
         loglike = -0.5 * (n * _LOG2PI + q["logdet"] + n * log_scale
@@ -112,27 +141,32 @@ def make_logpost_batch(spec: MixtureSpec, x: torch.Tensor, y: torch.Tensor,
     them with `mixed_gram` and sends the K factorizations through
     `chol_quadratics` as one batch (K <= 16: the small-K kernel K5), as
     JAX routes them on a TPU. R_mix has a unit diagonal, so the absolute
-    jitter here equals `make_logpost`'s mean-diagonal-relative one."""
-    if whiten:
-        raise NotImplementedError("whiten=True is not ported yet")
+    jitter here equals `make_logpost`'s mean-diagonal-relative one.
+
+    whiten=True takes no kernel: `whitened_quadratics`."""
     n = y.shape[-1]
     n_dim = x.shape[-1]
 
     def logpost_batch(zs: torch.Tensor):
         params, log_jac = unpack(spec, zs)
         kk = zs.shape[0]
-        if _fused_gate(spec, x.shape[-2], kk):
-            r1, r2 = _rate_rows(spec, params, kk, n_dim)
-            q = fused_mix_quadratics_smallk(x, y, r1, r2, params.p,
-                                            jitter=jitter)
+        if whiten:
+            logdet, beta, quad = whitened_quadratics(
+                mixed_gram(spec, x, params), y, jitter)
         else:
-            r = mixed_gram(spec, x, params)                # (K, n, n)
-            q = chol_quadratics(r, y, jitter=jitter)
-        beta = q["qoy"] / q["qoo"]
-        quad = q["qyy"] - q["qoy"] ** 2 / q["qoo"]
+            if _fused_gate(spec, x.shape[-2], kk):
+                r1, r2 = _rate_rows(spec, params, kk, n_dim)
+                q = fused_mix_quadratics_smallk(x, y, r1, r2, params.p,
+                                                jitter=jitter)
+            else:
+                r = mixed_gram(spec, x, params)            # (K, n, n)
+                q = chol_quadratics(r, y, jitter=jitter)
+            beta = q["qoy"] / q["qoo"]
+            quad = q["qyy"] - q["qoy"] ** 2 / q["qoo"]
+            logdet = q["logdet"]
         _, _, s = mix_weights(params.p)
         log_scale = torch.log(s * sigma2)
-        loglike = -0.5 * (n * _LOG2PI + q["logdet"] + n * log_scale
+        loglike = -0.5 * (n * _LOG2PI + logdet + n * log_scale
                           + quad * torch.exp(-log_scale))
         val = loglike + log_jac + _log_prior(
             spec, params, theta1_prior, theta2_prior, p_prior, loglike)
@@ -168,21 +202,20 @@ def make_mh_round(spec: MixtureSpec, x: torch.Tensor, y: torch.Tensor,
     An SE/SE mixture with n <= 256 and K <= 16 runs the round in the fused
     kernel (`fused_mix_mh_round`, K7): the candidates' transforms, priors
     and log-scales are computed here, the Grams, factorizations,
-    log-posteriors and first-acceptance scan in the kernel. Otherwise the
-    batched log-posterior (`make_logpost_batch`) and the same selection in
-    PyTorch. The random stream and the Markov kernel are the same either
-    way."""
-    if whiten:
-        raise NotImplementedError("whiten=True is not ported yet")
+    log-posteriors and first-acceptance scan in the kernel. Otherwise, and
+    always under whiten, the batched log-posterior (`make_logpost_batch`)
+    and the same selection in PyTorch. The random stream and the Markov
+    kernel are the same either way."""
     n_dim = x.shape[-1]
     lp_batch = make_logpost_batch(spec, x, y, sigma2,
                                   theta1_prior=theta1_prior,
                                   theta2_prior=theta2_prior,
-                                  p_prior=p_prior, jitter=jitter)
+                                  p_prior=p_prior, jitter=jitter,
+                                  whiten=whiten)
 
     def mh_round(z, lp_val, lp_beta, cands, log_u):
         kk = cands.shape[0]
-        if _fused_gate(spec, x.shape[-2], kk):
+        if not whiten and _fused_gate(spec, x.shape[-2], kk):
             params, log_jac = unpack(spec, cands)
             r1, r2 = _rate_rows(spec, params, kk, n_dim)
             extra = log_jac + _log_prior(spec, params, theta1_prior,
@@ -223,30 +256,29 @@ def make_mh_rounds(spec: MixtureSpec, x: torch.Tensor, y: torch.Tensor,
     SE/SE mixtures inside `dispatch_ok(n, K)` take the fused rounds
     function on every device (the CUDA kernel for CUDA tensors, its plain
     twin for CPU tensors), which also emits the stash. Every other mixture
-    and shape runs the same chain as a loop of `make_logpost_batch`
-    evaluations without a stash, as JAX routes it."""
-    if whiten:
-        raise NotImplementedError("whiten=True is not ported yet")
+    and shape, and whiten=True, runs the same chain as a loop of
+    `make_logpost_batch` evaluations without a stash, as JAX routes it."""
     n = x.shape[-2]
-    se_mix = is_se_mix(spec)
+    fused = is_se_mix(spec) and not whiten
     model = (cand_model_for(spec, x, theta1_prior, theta2_prior, p_prior)
-             if se_mix else None)
+             if fused else None)
     lp_batch = make_logpost_batch(spec, x, y, sigma2,
                                   theta1_prior=theta1_prior,
                                   theta2_prior=theta2_prior,
-                                  p_prior=p_prior, jitter=jitter)
+                                  p_prior=p_prior, jitter=jitter,
+                                  whiten=whiten)
 
     def mh_rounds(z, lp_val, lp_beta, deltas, log_u):
         rr, kk = log_u.shape
-        if se_mix and dispatch_ok(n, kk):
+        if fused and dispatch_ok(n, kk):
             return fused_mix_mh_rounds(x, y, z, lp_val, lp_beta, sigma2,
                                        deltas, log_u, model, jitter=jitter,
                                        stash=stash)
         if stash:
             raise ValueError(
                 f"make_mh_rounds(stash=True) requires the fused rounds "
-                f"(dispatch_ok envelope: n <= 1024, K <= 16); got n={n}, "
-                f"K={kk}")
+                f"(an SE/SE mixture without whiten, dispatch_ok envelope: "
+                f"n <= 1024, K <= 16); got n={n}, K={kk}, whiten={whiten}")
         zc, lpv, lpb = z, lp_val, lp_beta
         dl = deltas.reshape(rr, kk, -1)
         rows, accs, cons = [], [], []

@@ -61,6 +61,11 @@ def spline_corr(absdiff: torch.Tensor, theta) -> torch.Tensor:
     return torch.where(u <= 0.5, inner, outer)
 
 
+def sqexp_corr(sqdist: torch.Tensor) -> torch.Tensor:
+    """exp(-D) on weighted squared distances D (the rates folded into D)."""
+    return torch.exp(-sqdist)
+
+
 # --------------------------------------------------------------------------
 # Gram and cross-correlation functions
 # --------------------------------------------------------------------------

@@ -97,3 +97,31 @@ def chol_logdet(chol: torch.Tensor) -> torch.Tensor:
     """log det A from its lower Cholesky factor."""
     return 2.0 * torch.sum(
         torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), dim=-1)
+
+
+def solve_psd(a: torch.Tensor, b: torch.Tensor, jitter=0.0) -> torch.Tensor:
+    """Solve A x = b for PSD A through its Cholesky factor (NaN where the
+    factorization failed)."""
+    return chol_solve(jitter_cholesky(a, jitter), b)
+
+
+def logdet_psd(a: torch.Tensor, jitter=0.0) -> torch.Tensor:
+    """log det A for PSD A through its Cholesky factor (NaN where the
+    factorization failed)."""
+    return chol_logdet(jitter_cholesky(a, jitter))
+
+
+def schur_complement(r_new: torch.Tensor, r_cross: torch.Tensor,
+                     chol_old: torch.Tensor) -> torch.Tensor:
+    """R_new - R_cross R_old^-1 R_cross' for r_cross (m, n_old) and the
+    lower Cholesky factor of R_old: the conditional covariance of a new
+    batch given the old one, without forming R_old^-1."""
+    w = tri_solve(chol_old, r_cross.transpose(-1, -2))      # (n_old, m)
+    return r_new - torch.einsum("...ki,...kj->...ij", w, w)
+
+
+def augmented_logdet(r_new: torch.Tensor, r_cross: torch.Tensor,
+                     chol_old: torch.Tensor, jitter=0.0) -> torch.Tensor:
+    """log det [[R_old, R_cross'], [R_cross, R_new]] - log det R_old, the
+    log det of the Schur complement."""
+    return logdet_psd(schur_complement(r_new, r_cross, chol_old), jitter)

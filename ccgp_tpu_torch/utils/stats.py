@@ -1,9 +1,27 @@
-"""Masked statistics for fixed-shape filtering (port of the parts of
-`ccgp_tpu/utils/stats.py` the predict path uses).
+"""Statistical helpers (port of `ccgp_tpu/utils/stats.py`): the MVN
+log-density through a Cholesky factor, R's type-7 quantiles (with masked
+variants for fixed-shape filtering) and batch-means standard errors.
 """
 from __future__ import annotations
 
 import torch
+
+from ccgp_tpu_torch.ops import linalg
+
+_LOG2PI = 1.8378770664093453
+
+
+def mvn_logpdf_chol(y: torch.Tensor, mean, chol: torch.Tensor,
+                    log_scale=0.0) -> torch.Tensor:
+    """log N(y; mean, C) with C = exp(log_scale) L L', the scalar variance
+    factor in log space so the matrix is never scaled (the reference's
+    `mnormt::dmnorm(y, mean, s2 * sigma2 * R, log = 1)`)."""
+    n = y.shape[-1]
+    log_scale = torch.as_tensor(log_scale, dtype=y.dtype, device=y.device)
+    w = linalg.tri_solve(chol, y - mean)
+    quad = torch.sum(w * w, dim=-1) * torch.exp(-log_scale)
+    logdet = linalg.chol_logdet(chol) + n * log_scale
+    return -0.5 * (n * _LOG2PI + logdet + quad)
 
 
 def quantile_type7(x: torch.Tensor, q, dim: int = -1) -> torch.Tensor:
@@ -26,6 +44,16 @@ def _interp(xs: torch.Tensor, m: torch.Tensor, q: float) -> torch.Tensor:
     return xlo + frac * (xhi - xlo)
 
 
+def masked_quantile(x: torch.Tensor, valid: torch.Tensor, q) -> torch.Tensor:
+    """Type-7 quantile q of x[valid] per row with fixed shapes: invalid
+    entries sorted last, the interpolation over the valid count (the
+    reference drops negative-variance draws before its quantiles)."""
+    big = torch.finfo(x.dtype).max
+    xs = torch.sort(torch.where(valid, x, torch.full_like(x, big)),
+                    dim=-1).values
+    return _interp(xs, torch.sum(valid, dim=-1), float(q))
+
+
 def masked_quantile_pair(x: torch.Tensor, valid: torch.Tensor, q_lo,
                          q_hi) -> tuple:
     """Type-7 quantiles q_lo and q_hi of x[valid] per row, from ONE sort
@@ -43,3 +71,13 @@ def masked_mean(x: torch.Tensor, valid: torch.Tensor,
     w = valid.to(x.dtype)
     return torch.sum(x * w, dim=dim) / torch.clamp_min(
         torch.sum(w, dim=dim), 1.0)
+
+
+def batch_se(x: torch.Tensor, batch_size: int = 20) -> torch.Tensor:
+    """Batch-means standard error of the mean (coda::batchSE), over the
+    last axis; a trailing partial batch is dropped."""
+    n = x.shape[-1]
+    nb = n // batch_size
+    xb = x[..., :nb * batch_size].reshape(*x.shape[:-1], nb, batch_size)
+    var_b = torch.var(torch.mean(xb, dim=-1), dim=-1, correction=1)
+    return torch.sqrt(var_b * batch_size / (nb * batch_size))

@@ -111,10 +111,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      the 1-D baselines on phase 12's data with `run_study`'s keys, GPU
      against CPU within phase 12's 1e-7.
 
-Every path (5, 8, 9, 10, 12, 13, 15, 16) runs with all launch counters set
-to 0 just before it and read just after; each must launch its kernels
-(K2's fused kernel once per chunk, 38 in the bench fit, and once per round
-on the one-round and 1-D routes). The
+ 17. whiten=True: the bench workload through `fit_combined_gp(whiten=True)`
+     -> `predict_combined_gp` under phase 5's guards, K2 and K4 launched
+     (the factor cache rebuilt) and none of K1, K6, K7, no stash, its time
+     beside phase 5's; the small f64 slice with whiten, GPU against CPU;
+     the oracle check of `scripts/verify_whiten_oracle.py` at n = 768, y
+     offset 1000 (f32 on the card, the bordered quadratic through K5, the
+     whitened one through `whitened_quadratics`, against a float64 oracle
+     of the same Grams): the whitened error no larger than the bordered;
+ 18. the batch-sequential ME design path at full width:
+     `batch_me_design.run(Config(regenerate_first=True))` with speculative
+     K = 4, f64, key 0 (14 + 7 points, 25 `optimum_lhs` starts, maxiter
+     200, the 21-point refit study on the 25 x 25 lattice), on the GPU and
+     on the CPU: designs in the box, the second batch above a uniform
+     one, chain_ok and equal chains, designs, plug-in and summaries within
+     1e-6 (coverage and calibration off the design: the lattice corners
+     are design points), K1 and K2 launched, the JAX package's printed
+     run matched; then k-medoids on `results/regenerated_subdesigns.npy`
+     (7000 points, k = 7, 16 restarts), GPU against CPU: equal medoids,
+     costs within 1e-10.
+
+Every path (5, 8, 9, 10, 12, 13, 15, 16, 17, 18) runs with all launch
+counters set to 0 just before it and read just after; each must launch
+its kernels (K2's fused kernel once per chunk, 38 in the bench fit, and
+once per round on the one-round and 1-D routes). The
 last lines are a JSON object of kernel records (K1-K9), the card's name and
 power limit, and `{"ok": true, "device": {...}}`.
 """
@@ -442,7 +462,7 @@ def _spec():
 
 
 def _fit_predict(x, y, grid, seed, dtype, device, jitter, draw_chunk=None,
-                 **cfg):
+                 whiten=False, **cfg):
     from ccgp_tpu_torch.models.combined_gp import (
         MCMCConfig, fit_combined_gp, predict_combined_gp)
     from ccgp_tpu_torch.models.priors import InverseGamma, LogNormal
@@ -457,7 +477,7 @@ def _fit_predict(x, y, grid, seed, dtype, device, jitter, draw_chunk=None,
                           theta1_prior=LogNormal(-1.0, 1.0),
                           theta2_prior=InverseGamma(3, 4),
                           jitter=jitter, mle_method="grid",
-                          draw_chunk=draw_chunk, device=device)
+                          draw_chunk=draw_chunk, whiten=whiten, device=device)
     pred = predict_combined_gp(spec, fit, t(x), t(grid), kp,
                                draw_chunk=draw_chunk or 64, device=device)
     return fit, pred
@@ -567,24 +587,38 @@ def phase_main_path():
         x, y, grid, 7, torch.float32, "cuda", 1e-3, **BENCH_CFG), 1,
         warm=False)
 
-    # small f64 slice: GPU (kernels) against CPU (plain twins)
+    small_slice_gpu_vs_cpu("[5]")
+    return launches, fit, pred, ms
+
+
+SMALL_RTOL = 1e-6   # the small f64 slice, GPU against CPU
+
+
+def small_slice_gpu_vs_cpu(tag, whiten=False):
+    """Phase 5's slice at a small f64 size (n = 20, a 6 x 6 lattice,
+    n_max 400, samp = net = 120, key 1, jitter 1e-6) on the GPU (kernels)
+    and on the CPU (plain twins): equal chain counters, draws and
+    predictions within SMALL_RTOL."""
     xs = np.random.default_rng(0).uniform(size=(20, 2))
     ys = np.sin(5 * xs[:, 0]) + np.cos(3 * xs[:, 1])
     u = np.linspace(0, 1, 6)
     gs = np.stack(np.meshgrid(u, u), -1).reshape(-1, 2)
-    small = dict(n_max=400, samp_size=120, net_samp_size=120)
+    small = dict(n_max=400, samp_size=120, net_samp_size=120, whiten=whiten)
     fg, pg = _fit_predict(xs, ys, gs, 1, torch.float64, "cuda", 1e-6, **small)
     fc, pc = _fit_predict(xs, ys, gs, 1, torch.float64, "cpu", 1e-6, **small)
     for a in ("n_recorded", "n_proposals", "n_rounds", "converged"):
         if getattr(fg.mcmc, a) != getattr(fc.mcmc, a):
-            raise AssertionError(f"small slice: {a} differs GPU vs CPU")
+            raise AssertionError(f"{tag} small slice: {a} differs GPU vs CPU")
+    err_z = _rel_err(fg.zs, fc.zs)
     err = max(_rel_err(getattr(pg, a), getattr(pc, a))
               for a in ("mean", "lower", "upper"))
-    if not err <= 1e-6:
-        raise AssertionError(f"small slice: GPU vs CPU rel err {err:.3g}")
-    log(f"[5] small f64 slice GPU == CPU: n_recorded={fg.mcmc.n_recorded} "
-        f"n_rounds={fg.mcmc.n_rounds}, mean/lower/upper rel err {err:.3g}")
-    return launches, fit, pred
+    if not (err <= SMALL_RTOL and err_z <= SMALL_RTOL):
+        raise AssertionError(f"{tag} small slice: GPU vs CPU rel err "
+                             f"{err:.3g}, draws {err_z:.3g}")
+    log(f"{tag} small f64 slice{' (whiten)' if whiten else ''} GPU == CPU: "
+        f"n_recorded={fg.mcmc.n_recorded} n_rounds={fg.mcmc.n_rounds}, "
+        f"draws rel err {err_z:.3g}, mean/lower/upper rel err {err:.3g} "
+        f"(tol {SMALL_RTOL:g})")
 
 
 # ---------------------------------------------------------------------------
@@ -2271,6 +2305,340 @@ def phase_baselines_1d():
         raise AssertionError("1-D baselines: non-finite predictions")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: whiten=True
+# ---------------------------------------------------------------------------
+
+# scripts/verify_whiten_oracle.py on the JAX package's CPU, n = 768, y
+# offset 1000, f32: the quadratic's maximum relative error against a
+# float64 oracle of the same f32 Gram, bordered and whitened
+JAX_ORACLE_768 = {"bordered": 3.0e-3, "whitened": 4.2e-4}
+ORACLE_JITTER = 1e-3
+
+
+def oracle_problem():
+    """The n = 768, offset-1000 problem of `scripts/verify_whiten_oracle.py`
+    (its fourth; the generator drawn through the three before it): x (n, 2),
+    y (n,) in float32 and 8 unconstrained points z (8, 4)."""
+    r = np.random.default_rng(42)
+    for n, offset in ((512, 0.0), (768, 0.0), (1024, 0.0), (768, 1000.0)):
+        x = r.uniform(size=(n, 2)).astype(np.float32)
+        y = (offset + np.sin(5 * x[:, 0]) * np.cos(3 * x[:, 1])
+             + 0.05 * r.normal(size=n)).astype(np.float32)
+        zs = (r.normal(size=(8, 4)) * 0.5 + [0.5, 0.5, 0.0, 0.0]
+              ).astype(np.float32)
+    return x, y, zs
+
+
+def whiten_oracle():
+    """The bordered quadratic (y - beta)' R^-1 (y - beta) = qyy - qoy^2 /
+    qoo through `chol_quadratics` (K5, two batches of 4: K = 8 at n = 768
+    lies outside the small-K envelope) and the whitened one through
+    `likelihood.whitened_quadratics`, both in f32 on the card, against a
+    float64 oracle of the same f32 Grams. Returns the maximum relative
+    errors and K5's launches."""
+    from ccgp_tpu_torch.models.combination import mixed_gram, unpack
+    from ccgp_tpu_torch.models.likelihood import whitened_quadratics
+    from ccgp_tpu_torch.ops import chol_smallk
+    from ccgp_tpu_torch.ops.chol import chol_quadratics
+
+    x, y, zs = (torch.tensor(a, device="cuda") for a in oracle_problem())
+    grams = mixed_gram(_spec(), x, unpack(_spec(), zs)[0])     # (8, n, n)
+    n = grams.shape[-1]
+    k5 = chol_smallk.chol_quadratics_smallk.launches
+    quads = [chol_quadratics(g, y, jitter=ORACLE_JITTER)
+             for g in grams.split(4)]
+    k5 = chol_smallk.chol_quadratics_smallk.launches - k5
+    bordered = torch.cat([q["qyy"] - q["qoy"] ** 2 / q["qoo"]
+                          for q in quads]).double()
+    whitened = whitened_quadratics(grams, y, ORACLE_JITTER)[2].double()
+    g64 = grams.double() + ORACLE_JITTER * torch.eye(
+        n, dtype=torch.float64, device="cuda")
+    chol = torch.linalg.cholesky(g64)
+    rhs = torch.stack([y.double(), torch.ones_like(y, dtype=torch.float64)],
+                      -1).expand(8, n, 2)
+    w = torch.linalg.solve_triangular(chol, rhs, upper=False)
+    a, b = w[..., 0], w[..., 1]
+    beta = (a * b).sum(-1) / (b * b).sum(-1)
+    resid = a - beta[:, None] * b
+    quad = (resid * resid).sum(-1)
+    err = {k: float(((v - quad).abs() / quad.abs()).max())
+           for k, v in (("bordered", bordered), ("whitened", whitened))}
+    return err, k5
+
+
+def phase_whiten(bench_ms):
+    """(a) The bench workload with whiten=True, phase 5's guards; K2 and K4
+    launched (the cache rebuilt by `build_factors`), K1 never; (b) the
+    small f64 slice with whiten=True, GPU against CPU; (c) the oracle
+    check of `scripts/verify_whiten_oracle.py` at n = 768."""
+    x, y, grid = bench_data()
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit, pred = _fit_predict(x, y, grid, 7, torch.float32, "cuda", 1e-3,
+                             whiten=True, **BENCH_CFG)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    mc = fit.mcmc
+    mean = pred.mean.double().cpu().numpy()
+    lo, hi = pred.lower.double().cpu().numpy(), pred.upper.double().cpu().numpy()
+    y_true = f2(grid)
+    rmspe = float(np.sqrt(np.mean((y_true - mean) ** 2)))
+    cover = float(np.mean((y_true >= lo) & (y_true <= hi)))
+    log(f"[17] whiten=True bench workload (n=100, K=4, f32, key 7): "
+        f"n_recorded={mc.n_recorded} n_proposals={mc.n_proposals} "
+        f"n_rounds={mc.n_rounds} chain_ok={fit.chain_ok} rmspe={rmspe:.5f} "
+        f"coverage95={cover:.3f}; fit+predict {1e3 * wall:.1f} ms on the "
+        f"host clock ({1e3 * wall / mc.n_rounds:.2f} ms/round) against "
+        f"phase 5's median {bench_ms:.1f} ms (CUDA events); stash "
+        f"{'kept' if mc.factors is not None else 'off'}; launches={launches}")
+    if mean.shape != (625,) or not np.isfinite(mean).all():
+        raise AssertionError("whiten: non-finite or misshapen predictions")
+    if not (rmspe < 0.03 and cover >= 0.80 and fit.chain_ok):
+        raise AssertionError(f"whiten: rmspe={rmspe} coverage={cover} "
+                             f"chain_ok={fit.chain_ok}")
+    if mc.factors is not None:
+        raise AssertionError("whiten: the sampler kept a stash")
+    _require_launched(launches, ("chunk_draws", "chol_factors_lanes"),
+                      "whiten path")
+    for k in ("fused_mix_mh_rounds", "fused_mix_mh_round",
+              "fused_mix_quadratics_smallk"):
+        if launches[k]:
+            raise AssertionError(f"whiten: {k} was launched")
+    small_slice_gpu_vs_cpu("[17]", whiten=True)
+    _zero_counts()
+    err, k5 = whiten_oracle()
+    oracle = _read_counts()
+    log(f"[17] whiten oracle (scripts/verify_whiten_oracle.py's n=768, y "
+        f"offset 1000, 8 z, jitter {ORACLE_JITTER:g}, f32 on the card vs an "
+        f"f64 oracle of the same Grams): max rel err of the quadratic "
+        f"bordered (K5 x {k5}) {err['bordered']:.3g}, whitened "
+        f"{err['whitened']:.3g}; the JAX package on the CPU: bordered "
+        f"{JAX_ORACLE_768['bordered']:.1e}, whitened "
+        f"{JAX_ORACLE_768['whitened']:.1e}")
+    if k5 < 1:
+        raise AssertionError("whiten oracle: K5 was not launched")
+    if not err["whitened"] <= err["bordered"]:
+        raise AssertionError(f"whiten oracle: whitened {err['whitened']} > "
+                             f"bordered {err['bordered']}")
+    launches = {k: launches[k] + oracle[k] for k in launches}
+    return launches, wall
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the maximum-entropy design path
+# ---------------------------------------------------------------------------
+
+# `ccgp_tpu.experiments.batch_me_design.run(Config(regenerate_first=True)`
+# with speculative 4, PRNGKey(0), float64) on the JAX package's CPU
+# printed these: the second batch to 4 places, the refit's RMSPE to 4 and
+# coverage and calibration to 3 on the 25 x 25 lattice; the refit's chain
+# (recorded, proposals, rounds). OFF is the same run's coverage and
+# calibration over the 621 lattice points off the design (the corners are
+# design points, where the intervals have a width of rounding size)
+JAX_ME_SECOND = np.array([[-0.0241, 0.6407], [0.4658, -1.0],
+                          [0.1141, -0.1983], [-0.5647, -0.6242],
+                          [-0.4948, 0.4218], [0.6154, 0.6184],
+                          [0.6172, -0.0551]])
+JAX_ME_RMSPE = {"combined": 0.0454, "single": 0.0715, "cgp": 0.0443}
+JAX_ME_COVERAGE = {"combined": 0.938, "single": 0.824, "cgp": 0.877}
+JAX_ME_CALIBRATION = 0.499
+JAX_ME_OFF_COVERAGE = {"combined": 0.937, "single": 0.829, "cgp": 0.878}
+JAX_ME_OFF_CALIBRATION = 0.498
+JAX_ME_CHAIN = (1380, 3360, 1583)
+ME_RTOL = 1e-6      # the ME path, GPU against CPU
+KMEDOIDS_RTOL = 1e-10
+# `ccgp_tpu.design.kmedoids` on the same cloud (CPU, f64, PRNGKey(3), 16
+# restarts): the medoids' indices and the cost
+JAX_KMEDOIDS = ([3803, 2960, 5921, 2681, 6933, 3775, 2211], 428.6373284393122)
+
+
+def off_design(res, n_axis=25):
+    """Coverage per model and calibration of a `batch_me_design` result's
+    refit study (the port's or the JAX package's) over the lattice points
+    farther than 1e-6 from every design point."""
+    u = np.linspace(-1, 1, n_axis)
+    x_new = np.stack(np.meshgrid(u, u), -1).reshape(-1, 2)
+    design = np.concatenate([res.d_first, res.d_second])
+    keep = np.min(np.abs(x_new[:, None, :] - design[None]).max(-1), 1) > 1e-6
+    y = np.asarray(res.study.y_true)[keep]
+    cov = {m: float(np.mean((y >= np.asarray(p.lower)[keep])
+                            & (y <= np.asarray(p.upper)[keep])))
+           for m, p in res.study.predictions.items()}
+    quant = np.asarray(res.study.predictions["combined"].quant)[keep]
+    return cov, float(np.mean(quant))
+
+
+def run_me(device):
+    """`batch_me_design.run` at its own Config with regenerate_first=True
+    and speculative K = 4, f64, key 0; (result, seconds on the host clock,
+    seconds in the two design searches)."""
+    from ccgp_tpu_torch.experiments import batch_me_design as bmd
+    from ccgp_tpu_torch.models.combined_gp import MCMCConfig
+    from ccgp_tpu_torch.ops import rng
+
+    cfg = bmd.Config(regenerate_first=True)
+    cfg = bmd.Config(**{**cfg.__dict__, "mcmc": MCMCConfig(
+        **{**cfg.mcmc.__dict__, "speculative": 4})})
+    searches = [0.0]
+
+    def timed(fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            searches[0] += time.perf_counter() - t
+            return out
+        return call
+
+    # the searches' share, timed around the module's two calls
+    plain = bmd.me_design, bmd.batch_me_design
+    bmd.me_design, bmd.batch_me_design = (timed(f) for f in plain)
+    try:
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = bmd.run(cfg, key=rng.PRNGKey(0, device=device),
+                      dtype=torch.float64, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        bmd.me_design, bmd.batch_me_design = plain
+    return res, time.perf_counter() - t0, searches[0]
+
+
+def _chain(fit):
+    mc = fit.mcmc
+    return (mc.n_recorded, mc.n_proposals, mc.n_rounds, mc.converged)
+
+
+def phase_me_design():
+    """(a) The batch-sequential ME design path at full width on the GPU and
+    on the CPU; (b) k-medoids on the in-repo subdesign cloud."""
+    from ccgp_tpu_torch.design import augmented_me_criterion
+    from ccgp_tpu_torch.models.combination import MixtureSpec, mixed_gram
+    from ccgp_tpu_torch.ops import kernels, linalg
+
+    _zero_counts()
+    rg, gpu_s, gpu_search = run_me("cuda")
+    launches = _read_counts()
+    rc, cpu_s, cpu_search = run_me("cpu")
+    for name, fg, fc in (("first fit", rg.fit, rc.fit),
+                         ("refit", rg.study.fit, rc.study.fit)):
+        if _chain(fg) != _chain(fc):
+            raise AssertionError(f"ME path: the {name}'s chain differs GPU "
+                                 f"{_chain(fg)} vs CPU {_chain(fc)}")
+        if not fg.chain_ok:
+            raise AssertionError(f"ME path: the {name}'s chain is unhealthy")
+    sg, sc = rg.study.summary, rc.study.summary
+    og, oc = off_design(rg), off_design(rc)
+    errs = {
+        "first design": _rel_err(torch.tensor(rg.d_first),
+                                 torch.tensor(rc.d_first)),
+        "second design": _rel_err(torch.tensor(rg.d_second),
+                                  torch.tensor(rc.d_second)),
+        "plug-in": max(_rel_err(getattr(rg.plug_in_params, f),
+                                getattr(rc.plug_in_params, f))
+                       for f in ("p", "theta1", "theta2")),
+        "log-entropy": abs(rg.log_entropy - rc.log_entropy)
+        / max(1.0, abs(rc.log_entropy)),
+        "summaries": max([abs(sg.rmspe[k] - sc.rmspe[k]) for k in sc.rmspe]
+                         + [abs(og[0][k] - oc[0][k]) for k in oc[0]]
+                         + [abs(og[1] - oc[1])]),
+    }
+    # the second batch against a uniform one at the same plug-in
+    spec = MixtureSpec(kernels.sqexp_family(), kernels.sqexp_family(), dim=2)
+    x1 = torch.tensor(rg.d_first, device="cuda")
+    chol = linalg.jitter_cholesky(mixed_gram(spec, x1, rg.plug_in_params))
+    rand = torch.tensor(np.random.default_rng(0).uniform(-1, 1, (7, 2)),
+                        device="cuda")
+    rand_le = -float(augmented_me_criterion(spec, x1, chol, rand,
+                                            rg.plug_in_params))
+    log(f"[18] batch_me_design full width (14 + 7 points, 25 optimum_lhs "
+        f"starts, maxiter 200, n_max 5000, samp 1000, net 1000, f64, K=4, "
+        f"mlegp, 505 CGP candidates, 25 x 25 lattice): first fit "
+        f"{_chain(rg.fit)}, refit {_chain(rg.study.fit)} chain_ok="
+        f"{rg.study.fit.chain_ok}; second batch log-entropy "
+        f"{rg.log_entropy:.10g} against a uniform batch's {rand_le:.6g}; "
+        f"plug-in p={float(rg.plug_in_params.p):.10g} theta1="
+        f"{float(rg.plug_in_params.theta1):.10g} theta2="
+        f"{float(rg.plug_in_params.theta2):.10g}; GPU: "
+        f"{_summary_line(rg.study)}; off the design (621 points): coverage "
+        f"{ {k: round(v, 4) for k, v in og[0].items()} } calibration "
+        f"{og[1]:.5f}; GPU == CPU: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (tol {ME_RTOL:g}); {gpu_s:.1f} s on the GPU ({gpu_search:.1f} "
+        f"s in the two design searches), {cpu_s:.1f} s on the CPU "
+        f"({cpu_search:.1f} s), host clock; launches={launches}")
+    log(f"[18] second-batch design (GPU):\n{np.round(rg.d_second, 4)}")
+    for d in (rg.d_first, rg.d_second):
+        if not np.all(np.abs(d) <= 1.0):
+            raise AssertionError("ME path: a design point outside the box")
+    if not rg.log_entropy > rand_le:
+        raise AssertionError("ME path: the second batch scores below a "
+                             "uniform batch")
+    if not all(math.isfinite(v) for v in sg.rmspe.values()):
+        raise AssertionError(f"ME path: non-finite RMSPE {sg.rmspe}")
+    if not all(v <= ME_RTOL for v in errs.values()):
+        raise AssertionError(f"ME path: GPU and CPU disagree: {errs}")
+    _require_launched(launches, ("fused_mix_mh_rounds", "chunk_draws"),
+                      "ME design path")
+    jax_ok = (np.all(np.abs(rg.d_second - JAX_ME_SECOND) <= 5e-5 + 1e-12)
+              and _chain(rg.study.fit)[:3] == JAX_ME_CHAIN
+              and all(abs(sg.rmspe[k] - v) <= 5e-5
+                      for k, v in JAX_ME_RMSPE.items())
+              and all(abs(sg.coverage[k] - JAX_ME_COVERAGE[k]) <= 5e-4
+                      for k in ("combined", "cgp"))
+              and all(abs(og[0][k] - v) <= 5e-4
+                      for k, v in JAX_ME_OFF_COVERAGE.items())
+              and abs(og[1] - JAX_ME_OFF_CALIBRATION) <= 5e-4)
+    if not jax_ok:
+        raise AssertionError("ME path: differs from the JAX package's run")
+    log(f"[18] the JAX package's run of the same path (CPU, f64) agrees to "
+        f"its printed digits: the second batch, the refit chain "
+        f"{JAX_ME_CHAIN}, RMSPE {JAX_ME_RMSPE}, coverage of combined and cgp "
+        f"{JAX_ME_COVERAGE}, off-design coverage {JAX_ME_OFF_COVERAGE} and "
+        f"calibration {JAX_ME_OFF_CALIBRATION} (on the whole lattice the "
+        f"single GP's coverage reads {sg.coverage['single']:.3f} against "
+        f"JAX's {JAX_ME_COVERAGE['single']}, calibration "
+        f"{sg.average_quantile:.3f} against {JAX_ME_CALIBRATION}: the four "
+        f"corners, decided by rounding)")
+
+    # (b) k-medoids on the in-repo cloud, as scripts/run_kmedoids_full.py
+    # runs it: 7000 points, k = 7, PRNGKey(3), 16 restarts
+    from ccgp_tpu_torch.design import kmedoids
+    from ccgp_tpu_torch.ops import rng
+
+    cloud = np.load("results/regenerated_subdesigns.npy")
+    km, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        km[dev] = kmedoids(torch.tensor(cloud, device=dev), 7,
+                           rng.PRNGKey(3, device=dev), n_restarts=16)
+        torch.cuda.synchronize()
+        secs[dev] = time.perf_counter() - t0
+    idx_g, idx_c = km["cuda"].medoid_idx.cpu(), km["cpu"].medoid_idx
+    cost_err = abs(float(km["cuda"].cost) - float(km["cpu"].cost)) / abs(
+        float(km["cpu"].cost))
+    log(f"[18] kmedoids on results/regenerated_subdesigns.npy ({cloud.shape[0]}"
+        f" points, k=7, PRNGKey(3), 16 restarts): medoids {idx_c.tolist()}, "
+        f"cost {float(km['cpu'].cost):.12g}; GPU == CPU: indices "
+        f"{torch.equal(idx_g, idx_c)}, cost rel err {cost_err:.3g} (tol "
+        f"{KMEDOIDS_RTOL:g}); {secs['cuda']:.2f} s on the GPU, "
+        f"{secs['cpu']:.2f} s on the CPU")
+    if not (torch.equal(idx_g, idx_c) and cost_err <= KMEDOIDS_RTOL):
+        raise AssertionError("kmedoids: GPU and CPU disagree")
+    jax_err = abs(float(km["cuda"].cost) - JAX_KMEDOIDS[1]) / JAX_KMEDOIDS[1]
+    if not (idx_g.tolist() == JAX_KMEDOIDS[0] and jax_err <= KMEDOIDS_RTOL):
+        raise AssertionError(f"kmedoids: differs from the JAX package's "
+                             f"{JAX_KMEDOIDS}")
+    log(f"[18] kmedoids: the JAX package's medoids and cost on the same "
+        f"cloud matched (cost rel err {jax_err:.3g})")
+    return launches, gpu_s, cpu_s
+
+
 # each counted wrapper's kernels, by the demangled name the profiler gives
 # them: a name is the wrapper's when it holds every substring of one of
 # the wrapper's patterns
@@ -2889,7 +3257,8 @@ def _smallk_timing():
 
 
 def _k8_k9_timing():
-    """K8 at the EB row and at the MAP cloud, K9 at the MAP cloud: device
+    """K8 at the EB row and at the MAP cloud, K9 at the MAP cloud and at
+    B = 128 SE Grams, n = 128, f64: device
     and per-call time, the plain twin's time per call, the library route
     (the Grams built in torch, then cholesky_ex + solve_triangular of
     [y, 1]; timed only) and the bound."""
@@ -2941,21 +3310,23 @@ def _k8_k9_timing():
         lanes.append(f"B={b} {k:.4f} ms {how}")
     log(f"[6] fused_mix_quadratics at the EB row's n = 14, f64, by lanes: "
         + "; ".join(lanes))
-    g, y = map_grams(), mp["y"]
-    fn = lambda: chol_nll.chol_nll(g, y, jitter=1e-3)  # noqa: E731
-    call = _cuda_ms(fn, 20)
-    k, how = _kernel_ms("chol_nll", fn, 20, call)
-    p = _cuda_ms(lambda: chol_nll.chol_nll_plain(g, y, jitter=1e-3), 3)
-    lib_fn = lambda: _library_lanes(g, y, 1e-3)  # noqa: E731
-    lib_call = _cuda_ms(lib_fn, 20)
-    lib, lib_how = _library_ms(lib_fn, 20, lib_call)
-    bound = _lanes_bound(128, 100, 4, False)
-    log(f"[6] chol_nll map_cloud B=128 n=100 f32: kernel {k:.4f} ms {how} "
-        f"({call:.4f} ms per call), plain {p:.3f} ms per call, "
-        f"cholesky_ex + solve_triangular {lib:.4f} ms {lib_how} "
-        f"({lib_call:.4f} ms per call), bound {bound[0]:.2e} ms "
-        f"({bound[1]})")
-    out[("chol_nll", "map_cloud")] = (k, p, lib, bound)
+    # K9 at the MAP cloud (the kernel record's shape) and at B = 128 SE
+    # Grams, n = 128, f64 (`_k9_cases`)
+    for (label, g, y, jit), tag in zip(_k9_cases(), ("map_cloud", "f64")):
+        fn = lambda: chol_nll.chol_nll(g, y, jitter=jit)  # noqa: E731
+        call = _cuda_ms(fn, 20)
+        k, how = _kernel_ms("chol_nll", fn, 20, call)
+        p = _cuda_ms(lambda: chol_nll.chol_nll_plain(g, y, jitter=jit), 3)
+        lib_fn = lambda: _library_lanes(g, y, jit)  # noqa: E731
+        lib_call = _cuda_ms(lib_fn, 20)
+        lib, lib_how = _library_ms(lib_fn, 20, lib_call)
+        bound = _lanes_bound(g.shape[0], g.shape[-1], g.element_size(),
+                             False)
+        log(f"[6] chol_nll {label}: kernel {k:.4f} ms {how} ({call:.4f} ms "
+            f"per call), plain {p:.3f} ms per call, cholesky_ex + "
+            f"solve_triangular {lib:.4f} ms {lib_how} ({lib_call:.4f} ms per "
+            f"call), bound {bound[0]:.2e} ms ({bound[1]})")
+        out[("chol_nll", tag)] = (k, p, lib, bound)
     return out
 
 
@@ -2989,7 +3360,7 @@ def main() -> int:
     k5_err, k6_err, k7_err = phase_smallk()
     k8_err, k9_err = phase_k8_k9()
     paths = {}
-    paths["full-Bayes"], fit, pred = phase_main_path()
+    paths["full-Bayes"], fit, pred, bench_ms = phase_main_path()
     paths["MAP"], _, _ = phase_map()
     paths["EB"], _, _ = phase_eb()
     paths["lazy predict"] = phase_lazy(fit, pred)
@@ -3004,6 +3375,12 @@ def main() -> int:
     paths["study sim_2d_aniso"], _, _ = phase_study()
     phase_baselines_1d()
     log(f"[16] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["whiten"], _ = phase_whiten(bench_ms)
+    log(f"[17] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["ME design"], _, _ = phase_me_design()
+    log(f"[18] phase {time.perf_counter() - t0:.1f} s")
     launches = {k: sum(c[k] for c in paths.values()) for k in _counted()}
     log(f"[launches] per path: {paths}")
     kernels = [

@@ -152,14 +152,17 @@ def test_converted_jax_fit_predicts_the_same(data, jax_run):
         assert_close(getattr(pred, f), getattr(jp, f), 1e-10)
 
 
-def test_unported_options_raise(data):
-    x, y, _ = data
-    spec = TSpec(tkern.sqexp_family(), tkern.sqexp_family(), dim=2,
-                 rough="tied", anisotropic=True)
-    key = rng.PRNGKey(0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        fit_combined_gp(spec, t(x), t(y), key, mcmc=MCMCConfig(**CFG),
-                        whiten=True, device="cpu")
+def test_unported_options_raise(data, torch_run):
+    """An option the port still lacks raises rather than computing
+    something else: `predictive_moments(solve_mode=...)` (JAX
+    `predict/posterior.py:55`; the port has only the triangular solve)."""
+    from ccgp_tpu_torch.predict.posterior import predictive_moments
+
+    x, _, grid = data
+    spec, fit, _, _, _ = torch_run
+    with pytest.raises(TypeError):
+        predictive_moments(spec, fit.cache, t(x), t(grid), fit.sigma2,
+                           solve_mode="cho_solve")
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|ccgp_tpu)(?:\.|\s|$)",

@@ -18,7 +18,11 @@ bit on both their paths, as chip_smoke.py's phase 7 holds them; K5-K7
 bit for bit on the shapes where their cores change (n = 127 / 128 / 129)
 and at the cluster core's sizes, as phase 11 holds them, K8 at an EB
 row and the MAP cloud and K9 on every shape, with NaN on the same
-members, as phase 14 holds them.
+members, as phase 14 holds them. Two paths without a kernel of their
+own are held against the CPU: a `whiten=True` fit (the same chain, K1
+never launched, draws and predictions within 1e-7) and the first-batch
+ME design search (the same starts, the design within 1e-6 and the score
+within 1e-9, BFGS's stopping point).
 """
 import ctypes
 
@@ -747,3 +751,69 @@ def test_fused_mix_quadratics_nan_bit_equal(cuda, dtype):
     assert torch.equal(nan.cpu(), torch.arange(8) % 2 == 1)
     assert _equal_quads(got, gram_chol.fused_mix_quadratics_plain(
         **args, jitter=1e-2))
+
+
+# ---------------------------------------------------------------------------
+# whiten=True and the design search: the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _whiten_fit(device):
+    from ccgp_tpu_torch.models.combined_gp import (
+        MCMCConfig, fit_combined_gp, predict_combined_gp)
+
+    r = np.random.default_rng(0)
+    x = r.uniform(size=(16, 2))
+    y = np.sin(5 * x[:, 0]) + np.cos(3 * x[:, 1])
+    u = np.linspace(0, 1, 5)
+    grid = np.stack(np.meshgrid(u, u), -1).reshape(-1, 2)
+    t = lambda a: torch.tensor(a, dtype=torch.float64, device=device)  # noqa: E731
+    spec = MixtureSpec(kernels.sqexp_family(), kernels.sqexp_family(), dim=2,
+                       rough="tied", anisotropic=True)
+    kf, kp = rng.split(rng.PRNGKey(2, device=device), 2)
+    fit = fit_combined_gp(spec, t(x), t(y), kf, mcmc=MCMCConfig(
+        start=(1.0, 1.0, 0.0, 0.0), n_max=400, samp_size=120,
+        net_samp_size=120, speculative=4), theta1_prior=LogNormal(-1, 1),
+        theta2_prior=InverseGamma(3, 4), jitter=1e-6, mle_method="grid",
+        whiten=True, device=device)
+    return fit, predict_combined_gp(spec, fit, t(x), t(grid), kp,
+                                    device=device)
+
+
+def test_whiten_fit_gpu_equals_cpu(cuda):
+    """whiten=True at a small f64 size: the same chain on the card as on
+    the CPU, no fused rounds kernel and no stash, draws and predictions
+    within 1e-7."""
+    before = chol_smallk.fused_mix_mh_rounds.launches
+    fg, pg = _whiten_fit(cuda)
+    torch.cuda.synchronize()
+    assert chol_smallk.fused_mix_mh_rounds.launches == before
+    fc, pc = _whiten_fit("cpu")
+    assert fg.mcmc.factors is None
+    for a in ("n_recorded", "n_proposals", "n_rounds", "converged"):
+        assert getattr(fg.mcmc, a) == getattr(fc.mcmc, a), a
+    assert _rel(fg.zs, fc.zs) <= 1e-7
+    for f in ("mean", "lower", "upper"):
+        assert _rel(getattr(pg, f), getattr(pc, f)) <= 1e-7
+
+
+def test_me_design_gpu_equals_cpu(cuda):
+    """The first-batch ME search at a small size (6 points, 3 starts,
+    maxiter 40), f64: the same starts, the design within 1e-6 and the score
+    within 1e-9 (BFGS's stopping point)."""
+    from ccgp_tpu_torch.design import me_design
+    from ccgp_tpu_torch.design.optimize import _starts
+    from ccgp_tpu_torch.models.combination import MixParams
+
+    spec = MixtureSpec(kernels.sqexp_family(), kernels.sqexp_family(), dim=2)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        t = lambda v: torch.tensor(v, dtype=torch.float64, device=dev)  # noqa: E731
+        key = rng.PRNGKey(0, device=dev)
+        out[dev.type] = (_starts(key, 6, 2, 3, (-1.0, 1.0), torch.float64),
+                         me_design(spec, MixParams(p=t(0.5), theta1=t(1.0),
+                                                   theta2=t(4.0)),
+                                   6, 2, key, n_starts=3, maxiter=40))
+    (sg, rg), (sc, rc) = out["cuda"], out["cpu"]
+    assert torch.equal(sg.cpu(), sc)
+    assert _rel(rg.design, rc.design) <= 1e-6
+    assert _rel(rg.score, rc.score) <= 1e-9
