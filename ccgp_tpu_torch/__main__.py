@@ -5,8 +5,13 @@
                              [--f64] [--speculative K]
 
 Experiments: sim_1d, sim_1d_two_families, sim_2d_iso, sim_2d_aniso,
-batch_me_design (which reads the reference's `Initial ME Design.txt`
-under the data root, CCGP_DATA_ROOT). The study runs on the CUDA device
+batch_me_design, ground_vibrations, heat_exchanger and
+sim_2d_iso_advanced. The last four read the reference's files under the
+data root, CCGP_DATA_ROOT (`Initial ME Design.txt`, the ground-vibrations
+splits, the Qian sets and grid, the maximin design and grid);
+`chip_smoke.gv_data_root` rebuilds the ground-vibrations size-50 splits
+from the repo's tables. sim_2d_sweep is not ported yet, nor are the JAX
+CLI's --designs and --mesh. The study runs on the CUDA device
 unless --cpu is given (without a GPU it fails rather than fall back);
 --f64 runs it in float64 on either device. Prints the RMSPE, coverage and
 calibration lines of the JAX CLI (for batch_me_design, those of its

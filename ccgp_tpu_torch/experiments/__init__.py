@@ -1,18 +1,22 @@
 """The reference case studies as thin configs over the framework (port of
-`ccgp_tpu/experiments`): the four simulation studies and the
-batch-sequential maximum-entropy design study. `batch_me_design` reads
-the reference's initial design unless its Config regenerates it;
-`heat_exchanger`, `ground_vibrations`, `sim_2d_iso_advanced` and
-`sim_2d_sweep`, which read the reference's data files, are still to come
-(ROADMAP queue 1)."""
+`ccgp_tpu/experiments`): the four simulation studies, the batch-sequential
+maximum-entropy design study and the three studies on the reference's data
+(`ground_vibrations`, `heat_exchanger`, `sim_2d_iso_advanced`), which, like
+`batch_me_design`'s default Config, read their files under the data root
+(`eval.datasets`, CCGP_DATA_ROOT). `sim_2d_sweep`, a sweep over the
+reference's 100 training designs, is still to come (ROADMAP queue 1)."""
 from ccgp_tpu_torch.experiments.common import StudyResult, run_study
 from ccgp_tpu_torch.experiments import (
     batch_me_design,
+    ground_vibrations,
+    heat_exchanger,
     sim_1d,
     sim_1d_two_families,
     sim_2d_aniso,
     sim_2d_iso,
+    sim_2d_iso_advanced,
 )
 
 PORTED = ("sim_1d", "sim_1d_two_families", "sim_2d_iso", "sim_2d_aniso",
-          "batch_me_design")
+          "batch_me_design", "ground_vibrations", "heat_exchanger",
+          "sim_2d_iso_advanced")

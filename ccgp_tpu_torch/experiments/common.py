@@ -27,7 +27,7 @@ from ccgp_tpu_torch.models.composite_gp import cgp_fit, cgp_predict
 from ccgp_tpu_torch.models.kriging import kriging_predict
 from ccgp_tpu_torch.ops import rng
 from ccgp_tpu_torch.ops.kernels import KernelFamily
-from ccgp_tpu_torch.utils.device import resolve
+from ccgp_tpu_torch.utils.device import move, resolve
 
 
 class StudyResult(NamedTuple):
@@ -56,17 +56,26 @@ def run_study(
     theta2_prior,
     alpha: float = 0.05,
     quant_vs_truth: bool = False,     # the 1-D reference's Quant vs y_true
+    sigma2=None,
     mle_family: Optional[KernelFamily] = None,
+    mle_ard: bool = False,
+    run_cgp: bool = True,
+    jitter: float = 0.0,
     single_variant: str = "reference",  # 'reference' (1-D) | 'mlegp' (>= 2-D)
+    single_fit=None,                  # a precomputed mlegp / kriging fit
     device="cuda",
 ) -> StudyResult:
     """The study on `device` (the GPU unless device="cpu"): x, y, x_new and
-    the key are moved there. The combined GP, the single GP and the
-    composite GP (505 candidates) are all fitted without jitter, and an
-    unhealthy chain warns. With single_variant="mlegp" one `mlegp_fit`
-    gives both the sigma^2 plug-in and the single-GP baseline, as the >= 2-D
-    scripts take both from one mlegp fit; else the combined GP takes its
-    own plug-in and the baseline is `kriging_mle`'s."""
+    the key are moved there. The combined GP and the single GP are fitted
+    with `jitter`, the composite GP (505 candidates) unless run_cgp=False,
+    and an unhealthy chain warns.
+
+    With single_variant="mlegp" one `mlegp_fit` gives both the sigma^2
+    plug-in and the single-GP baseline, as the >= 2-D scripts take both
+    from one mlegp fit; `single_fit` (a `KrigingMLE`) replaces that fit,
+    and sigma2 replaces its plug-in. Else the combined GP takes sigma2, or
+    its own plug-in when it is None, and the baseline is `single_fit` or
+    `kriging_mle`'s (ARD with mle_ard=True)."""
     dev = resolve(device)
     x = torch.as_tensor(x, device=dev)
     y = torch.as_tensor(y, dtype=x.dtype, device=dev)
@@ -75,12 +84,16 @@ def run_study(
     fam = mle_family or spec.kernel1
 
     mlegp = single_variant == "mlegp"
-    kfit = mlegp_fit(fam, x, y, k_single, jitter=0.0) if mlegp else None
+    kfit = move(single_fit, dev)
+    if mlegp and kfit is None:
+        kfit = mlegp_fit(fam, x, y, k_single, jitter=jitter)
+    if mlegp and sigma2 is None:
+        sigma2 = kfit.sigma2
     fit = fit_combined_gp(spec, x, y, k_fit, mcmc=mcmc,
                           theta1_prior=theta1_prior,
-                          theta2_prior=theta2_prior,
-                          sigma2=kfit.sigma2 if mlegp else None,
-                          mle_family=mle_family, device=dev)
+                          theta2_prior=theta2_prior, sigma2=sigma2,
+                          mle_family=mle_family, mle_ard=mle_ard,
+                          jitter=jitter, device=dev)
     if not fit.chain_ok:
         mc = fit.mcmc
         warnings.warn(
@@ -98,14 +111,15 @@ def run_study(
         _np(pred.mean), _np(pred.lower), _np(pred.upper), _np(pred.quant))}
 
     if kfit is None:
-        kfit = kriging_mle(fam, x, y, k_single, jitter=0.0)
+        kfit = kriging_mle(fam, x, y, k_single, ard=mle_ard, jitter=jitter)
     kpred = kriging_predict(fam, x, y, kfit, x_new, alpha=alpha,
                             variant="mlegp" if mlegp else "reference")
     predictions["single"] = ModelPrediction(
         _np(kpred.mean), _np(kpred.lower), _np(kpred.upper))
-    cpred = cgp_predict(cgp_fit(x, y, k_cgp), x_new)
-    predictions["cgp"] = ModelPrediction(
-        _np(cpred.mean), _np(cpred.lower), _np(cpred.upper))
+    if run_cgp:
+        cpred = cgp_predict(cgp_fit(x, y, k_cgp), x_new)
+        predictions["cgp"] = ModelPrediction(
+            _np(cpred.mean), _np(cpred.lower), _np(cpred.upper))
 
     summary = comparison_summary(np.asarray(y_true), predictions)
     min_ess = float(torch.min(effective_sample_size(fit.zs[None])))

@@ -129,9 +129,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      are design points), K1 and K2 launched, the JAX package's printed
      run matched; then k-medoids on `results/regenerated_subdesigns.npy`
      (7000 points, k = 7, 16 restarts), GPU against CPU: equal medoids,
-     costs within 1e-10.
+     costs within 1e-10;
+ 19. the data-file case studies on the data `gv_data_root` rebuilds from
+     the repo's ground-vibrations tables and on stand-ins for the files
+     the repo lacks (`standin_data_root`), f64, each study's full budget:
+     (a) `ground_vibrations` as the JAX package's golden run
+     (`Config(sample=1, compat_mlegp=True)`, PRNGKey(1), speculative 0):
+     the single GP within 1e-6 of R's archived columns, the summary at
+     RESULTS_compat_mlegp.md's printed digits, its R-format table written
+     and read back to the same summary; (b) `ground_vibrations` with the
+     `mlegp_fit` plug-in, K = 4, (c) `heat_exchanger` with the EB scan of
+     a 624-row grid (1000 nodes, n = 64; K3 once per row), (d)
+     `sim_2d_iso_advanced` in both compat modes (60 rows, 1728 nodes), each
+     on the GPU and on the CPU: the same chain and EB row, draws,
+     predictions and summaries within 1e-8 (the heat scan on the CPU over
+     the GPU's best 16 rows and every 48th), each EB scan's
+     log-likelihoods within 1e-9 of a CPU scan of the same inputs, K1 and
+     K2 launched, K3 once per grid row; (e) the
+     golden fit through `save_fit` / `load_fit` on the CPU and the card,
+     predicting as before; (f) K1 at the GV shape (K = 4, n = 50, d = 9)
+     and K3 / K4 at the heat EB shape (B = 1000, n = 64) against their
+     twins bit for bit, then timed as in phase 6.
 
-Every path (5, 8, 9, 10, 12, 13, 15, 16, 17, 18) runs with all launch
+Every path (5, 8, 9, 10, 12, 13, 15, 16, 17, 18, 19) runs with all launch
 counters set to 0 just before it and read just after; each must launch
 its kernels (K2's fused kernel once per chunk, 38 in the bench fit, and
 once per round on the one-round and 1-D routes). The
@@ -359,7 +379,7 @@ def _rounds_case(n, rr, dtype, jitter, seed, kk=4, indefinite=False,
     return args
 
 
-def _compare_rounds(args, rtol, label, indefinite=False):
+def _compare_rounds(args, rtol, label, indefinite=False, tag="[4]"):
     """K1 against its twin on the same inputs: equal acc and consumed, NaN
     stash rows in the same places, records and decoded stash within rtol.
     Returns (max abs error, records bit-equal to the twin's)."""
@@ -392,7 +412,7 @@ def _compare_rounds(args, rtol, label, indefinite=False):
     if not (err_rec <= rtol and err_stash <= rtol):
         raise AssertionError(f"{label}: rec err {err_rec:.3g}, stash err "
                              f"{err_stash:.3g} > {rtol:g}")
-    log(f"[4] {label}: acc/consumed equal ({int(acc.sum())}/"
+    log(f"{tag} {label}: acc/consumed equal ({int(acc.sum())}/"
         f"{acc.numel()} accepted), rec rel err {err_rec:.3g}, stash rel "
         f"err {err_stash:.3g} (tol {rtol:g}), {bits}/{acc.numel()} records "
         f"bit-equal")
@@ -2639,6 +2659,611 @@ def phase_me_design():
     return launches, gpu_s, cpu_s
 
 
+# ---------------------------------------------------------------------------
+# the data-file case studies
+# ---------------------------------------------------------------------------
+
+GV_INPUTS = ["slope", "angle", "top.layer3", "bot.layer3", "vs2", "vs3",
+             "vs4", "density", "freq"]
+GV_POINTS = 200     # the ground-vibrations data set
+GV_TRAIN = 50
+
+
+def _write_r_table(path, names, rows) -> None:
+    """An R `write.table` file: quoted header, quoted 1-based row names,
+    values as `repr(float)` (exact)."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as fh:
+        fh.write(" ".join(f'"{n}"' for n in names) + "\n")
+        for i, r in enumerate(rows):
+            fh.write(f'"{i + 1}" ' + " ".join(repr(float(v)) for v in r)
+                     + "\n")
+
+
+def gv_data_root(root, samples=range(1, 10)):
+    """Rebuild the ground-vibrations size-50 splits from the repo's tables
+    `results/GV Size 50 Results {1..9}.txt` under `root`, in the layout and
+    R format `eval.datasets.load_ground_vibrations` reads (9 standardized
+    inputs, then y), and return root as a `pathlib.Path`.
+
+    Table i holds the 150 test points of sample i, in test-set order, with
+    their inputs and `y.true`; the nine tables together hold the 200
+    points of the data set, so sample i's training set is the 50 points
+    not in table i. Test rows keep their table's order; training rows
+    come in the order of their first appearance across tables 1..9. The
+    reference's own training-row order is not recorded anywhere in the
+    repo: another order permutes the training Gram, which changes the
+    rounding of every computation on it and nothing else.
+
+    Sizes 90 cannot be rebuilt: the repo holds no size-90 table."""
+    from pathlib import Path
+
+    from ccgp_tpu_torch.eval import results
+
+    here = Path(__file__).resolve().parent / "results"
+    tables = {}
+    for i in range(1, 10):
+        head, rows = results.read_comparison_table(
+            here / f"GV Size 50 Results {i}.txt")
+        tables[i] = rows[:, [head.index(c) for c in GV_INPUTS + ["y.true"]]]
+    order = {}
+    for i in range(1, 10):
+        for r in tables[i]:
+            order.setdefault(tuple(r), len(order))
+    if len(order) != GV_POINTS:
+        raise AssertionError(f"the GV tables hold {len(order)} distinct "
+                             f"points, not {GV_POINTS}")
+    everything = np.array(list(order))
+    root = Path(root)
+    d = root / "Ground Vibrations Emulator"
+    for i in samples:
+        test = {tuple(r) for r in tables[i]}
+        train = np.array([r for r in everything if tuple(r) not in test])
+        if len(test) != GV_POINTS - GV_TRAIN or len(train) != GV_TRAIN:
+            raise AssertionError(f"GV sample {i}: {len(train)} training and "
+                                 f"{len(test)} test points")
+        names = GV_INPUTS + ["y"]
+        _write_r_table(d / "Training Sets"
+                       / f"Training Set Size 50 Sample {i}.txt", names, train)
+        _write_r_table(d / "Test Sets" / f"Test Set Size 50 Sample {i}.txt",
+                       names, tables[i])
+    return root
+
+
+def heat_standin_response(x: np.ndarray) -> np.ndarray:
+    """A smooth response on the unit 4-cube standing in for the Qian heat
+    exchanger's `ya`, which is not in the repo: a Gaussian bump in (m, k),
+    a bilinear term in (Tin, Twall) and a gentle oscillation."""
+    m, tin, k, tw = x.T
+    return (20.0 * np.exp(-2.0 * (m - 0.3) ** 2 - (k - 0.6) ** 2)
+            + 8.0 * tin * tw + 2.0 * np.sin(3.0 * m + 2.0 * tw))
+
+
+def _lhs(g, n, d) -> np.ndarray:
+    return (np.stack([g.permutation(n) for _ in range(d)], 1)
+            + g.uniform(size=(n, d))) / n
+
+
+def heat_standin_grid() -> np.ndarray:
+    """A stand-in for the reference's 624 x 4 heat-exchanger hyperprior
+    grid, in the ranges of `eb_grid`: a1 in 4 steps over [3, 5], b1 in 6
+    geometric steps over [4, 16], a2 in {3, 5}, b2 in 13 geometric steps
+    over [16, 256] (4 x 6 x 2 x 13 = 624 rows)."""
+    return np.array([(a1, b1, a2, b2) for a1 in np.linspace(3.0, 5.0, 4)
+                     for b1 in np.geomspace(4.0, 16.0, 6) for a2 in (3.0, 5.0)
+                     for b2 in np.geomspace(16.0, 256.0, 13)])
+
+
+def standin_data_root(root, heat_rows=None):
+    """Write stand-ins for the files `heat_exchanger` and
+    `sim_2d_iso_advanced` read, which are not in the repo, under `root` in
+    the loaders' shapes and R formats; return root as a `pathlib.Path`:
+
+    * the Qian training and test sets: a 64- and a 14-point LHS on the unit
+      4-cube (`default_rng(0)`) with `heat_standin_response`;
+    * the heat grid: `heat_standin_grid()`, or its rows `heat_rows` (a
+      sequence of row indices);
+    * `maximin 14 pts.txt`: phase 16's design, the 14-point maximin LHS
+      that `sim_2d_aniso.run` draws from PRNGKey(0);
+    * the 2-D grid: `eb_grid()`'s 60 rows.
+
+    Numbers from these files are not the reference's."""
+    from pathlib import Path
+
+    from ccgp_tpu_torch.design.lhs import maximin_lhs
+    from ccgp_tpu_torch.ops import rng
+
+    root = Path(root)
+    g = np.random.default_rng(0)
+    heat = root / "Heat Exchanger Emulator"
+    names = ["m", "Tin", "k", "Twall", "ya"]
+    for name, n in (("Qian Training Set.txt", 64), ("Qian Test Set.txt", 14)):
+        x = _lhs(g, n, 4)
+        _write_r_table(heat / name, names,
+                       np.column_stack([x, heat_standin_response(x)]))
+    pars = ["a1", "b1", "a2", "b2"]
+    grid = heat_standin_grid()
+    _write_r_table(heat / "hyperpars.matrix.txt", pars,
+                   grid if heat_rows is None else grid[list(heat_rows)])
+    d2 = root / "2D Codes and Designs"
+    k_d, _ = rng.split(rng.PRNGKey(0, device="cpu"))
+    design = maximin_lhs(k_d, 14, 2).numpy()
+    d2.mkdir(parents=True, exist_ok=True)
+    with open(d2 / "maximin 14 pts.txt", "w") as fh:
+        fh.writelines(f"{float(a)!r} {float(b)!r}\n" for a, b in design)
+    _write_r_table(d2 / "hyperpars.matrix.txt", pars, eb_grid())
+    return root
+
+
+# the JAX package's golden study, `ground_vibrations.Config(sample=1,
+# compat_mlegp=True)`, full budget, PRNGKey(1), CPU f64, speculative 0
+# (`scripts/run_goldens.py:76-82`), as printed in RESULTS_compat_mlegp.md;
+# the JAX package printed the same digits on the files `gv_data_root`
+# rebuilds (its chain: 2320 recorded of 5685 proposals)
+JAX_GV_RMSPE = {"combined": 2.719, "single": 2.687, "cgp": 2.856}
+JAX_GV_COVERAGE = {"combined": 0.973, "single": 0.867, "cgp": 0.727}
+JAX_GV_CALIBRATION = 0.499
+JAX_GV_CHAIN = (2320, 5685)
+GV_R_ATOL = 1e-6        # the single GP against R's archived columns
+EB_RTOL = 1e-9          # EB log-likelihoods, GPU against CPU, same inputs
+COMPAT_TABLE = "results_compat_mlegp/GV Size 50 Results 1.txt"
+# the studies phase 19 runs on the GPU and on the CPU: (module, Config
+# overrides, key, run keywords); K = 4, f64, each study's full budget
+CASES = {
+    "ground_vibrations": ("ground_vibrations", {}, 1, {"run_cgp": False}),
+    "heat_exchanger": ("heat_exchanger", {"eb_search": True}, 0, {}),
+    "sim_2d_iso_advanced fixed": ("sim_2d_iso_advanced",
+                                  {"compat": "fixed"}, 0, {}),
+    "sim_2d_iso_advanced reference": ("sim_2d_iso_advanced",
+                                      {"compat": "reference"}, 0, {}),
+}
+# the stages timed inside a study, by the names the study modules import
+STAGES = ("mlegp_fit", "choose_hyperpars", "fit_combined_gp", "cgp_fit")
+
+
+def _data_root(root):
+    """Point the port's loaders at root; returns the previous roots."""
+    from ccgp_tpu_torch.eval import datasets
+
+    before = datasets._DEFAULT_ROOTS
+    datasets._DEFAULT_ROOTS = (str(root),)
+    return before
+
+
+def run_case(name, device, speculative=4, run_kw=None, **over):
+    """A phase-19 study of `CASES` on `device`, its Config changed by
+    `over` and its run keywords replaced by `run_kw` where given: its
+    result, seconds on the host clock, seconds per stage (`STAGES`, around
+    the module-level functions the study calls), and where it ran an EB
+    scan its choice and the scan's (args, kwargs)."""
+    import importlib
+
+    from ccgp_tpu_torch.experiments import common
+    from ccgp_tpu_torch.models.combined_gp import MCMCConfig
+    from ccgp_tpu_torch.ops import rng
+
+    modname, cfg_over, seed, case_kw = CASES[name]
+    run_kw = case_kw if run_kw is None else run_kw
+    mod = importlib.import_module(f"ccgp_tpu_torch.experiments.{modname}")
+    cfg = mod.Config(**{**cfg_over, **over})
+    cfg = type(cfg)(**{**cfg.__dict__, "mcmc": MCMCConfig(
+        **{**cfg.mcmc.__dict__, "speculative": speculative})})
+    stages, choice = {}, []
+
+    def timed(stage, fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            stages[stage] = stages.get(stage, 0.0) + time.perf_counter() - t
+            if stage == "choose_hyperpars":
+                choice.append((out, (a, kw)))
+            return out
+        return call
+
+    patched = [(m, s, getattr(m, s)) for m in (mod, common) for s in STAGES
+               if hasattr(m, s)]
+    for m, s, fn in patched:
+        setattr(m, s, timed(s, fn))
+    try:
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = mod.run(cfg, key=rng.PRNGKey(seed, device=device),
+                      dtype=torch.float64, device=device, **run_kw)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        for m, s, fn in patched:
+            setattr(m, s, fn)
+    return (res, secs, stages) + (choice[0] if choice else (None, None))
+
+
+def _case_record(res, secs, stages, choice) -> dict:
+    """What phase 19 compares of a study run, its tensors on the CPU."""
+    s = res.summary
+    out = {"chain": _chain(res.fit), "chain_ok": res.fit.chain_ok,
+           "zs": res.fit.zs.cpu(), "sigma2": float(res.fit.sigma2),
+           "predictions": {m: {f: torch.as_tensor(getattr(p, f))
+                               for f in ("mean", "lower", "upper", "quant")
+                               if getattr(p, f) is not None}
+                           for m, p in res.predictions.items()},
+           "summary": (s.rmspe, s.coverage, s.average_quantile),
+           "secs": secs, "stages": stages}
+    if choice is not None:
+        out["eb"] = (int(choice.index), choice.likelihoods.cpu())
+    return out
+
+
+def _compare_case(name, g, c, rows=None):
+    """A study's GPU record against its CPU record: the same chain, EB row
+    and chain health; draws, predictions and summaries within STUDY_RTOL.
+    `rows`: the GPU's grid rows that the CPU scanned, in order, where it
+    scanned a subset. Returns the largest relative error and that of the
+    two scans' log-likelihoods, which carry the difference of the two
+    devices' `mlegp_fit` plug-ins (BFGS's stopping point)."""
+    if g["chain"] != c["chain"] or g["chain_ok"] != c["chain_ok"]:
+        raise AssertionError(f"{name}: chain {g['chain']} on the GPU, "
+                             f"{c['chain']} on the CPU")
+    errs = [_rel_err(g["zs"], c["zs"]),
+            abs(g["sigma2"] - c["sigma2"]) / max(1.0, abs(c["sigma2"]))]
+    if set(g["predictions"]) != set(c["predictions"]):
+        raise AssertionError(f"{name}: models differ")
+    for m, fields in c["predictions"].items():
+        errs += [_rel_err(g["predictions"][m][f], v)
+                 for f, v in fields.items()]
+    (gr, gc, gq), (cr, cc, cq) = g["summary"], c["summary"]
+    errs += [abs(gr[k] - cr[k]) for k in cr] + [abs(gc[k] - cc[k])
+                                                for k in cc]
+    errs.append(abs(gq - cq))
+    if not max(errs) <= STUDY_RTOL:
+        raise AssertionError(f"{name}: GPU and CPU differ by "
+                             f"{max(errs):.3g} > {STUDY_RTOL:g}")
+    eb_err = None
+    if "eb" in c:
+        rows = list(range(len(g["eb"][1]))) if rows is None else list(rows)
+        if g["eb"][0] != rows[c["eb"][0]]:
+            raise AssertionError(f"{name}: EB row {g['eb'][0]} on the GPU, "
+                                 f"{rows[c['eb'][0]]} on the CPU")
+        eb_err = _rel_err(g["eb"][1][rows], c["eb"][1])
+    return max(errs), eb_err
+
+
+def _eb_same_inputs(name, choice, call, rows):
+    """The GPU scan's log-likelihoods against the CPU's on the same inputs
+    (the GPU study's x, y, sigma2 and nodes; the grid rows `rows`), within
+    EB_RTOL. Returns the relative error."""
+    from ccgp_tpu_torch.eb import choose_hyperpars
+
+    (spec, x, y, grid, s2), kw = call
+    ref = choose_hyperpars(spec, x.cpu(), y.cpu(), np.asarray(grid)[rows],
+                           s2, **{**kw, "device": "cpu"})
+    err = _rel_err(choice.likelihoods.cpu()[rows], ref.likelihoods)
+    if not err <= EB_RTOL:
+        raise AssertionError(f"{name}: EB log-likelihoods on the same "
+                             f"inputs differ by {err:.3g} > {EB_RTOL:g}")
+    return err
+
+
+def _stage_line(rec) -> str:
+    secs = rec["secs"]
+    return ", ".join(f"{k} {v:.1f} s ({100 * v / secs:.0f}%)"
+                     for k, v in rec["stages"].items())
+
+
+def gv_golden(root):
+    """19a: the golden study on the GPU as `scripts/run_goldens.py:76-82`
+    ran it in JAX, checked against R's archived fit and the JAX run; its
+    table written and read back. Returns (result, launches, seconds)."""
+    from pathlib import Path
+
+    from ccgp_tpu_torch.eval import results
+    from ccgp_tpu_torch.eval.datasets import load_ground_vibrations
+
+    _zero_counts()
+    res, secs, stages, _, _ = run_case("ground_vibrations", "cuda",
+                                       speculative=0, run_kw={},
+                                       compat_mlegp=True)
+    launches = _read_counts()
+    s = res.summary
+    gv = load_ground_vibrations(50, 1)
+    table = (Path(root) / "Ground Vibrations Emulator" / "Results"
+             / "Size 50 Results 1.txt")
+    results.write_comparison_table(table, gv["x_test"], GV_INPUTS,
+                                   res.predictions, res.y_true)
+    back = results.summary_from_table(table)
+    if back != s:
+        raise AssertionError(f"GV: the written table's summary {back} is "
+                             f"not the study's {s}")
+    cols, tab = results.read_comparison_table(
+        Path(__file__).resolve().parent / COMPAT_TABLE)
+    if not np.array_equal(tab[:, cols.index("y.true")], res.y_true):
+        raise AssertionError("GV: the test set is not the archived table's")
+    got = {"y.hat": res.predictions["single"].mean,
+           "LL": res.predictions["single"].lower,
+           "UL": res.predictions["single"].upper}
+    err_r = max(float(np.max(np.abs(v - tab[:, cols.index(f"{k}.single")])))
+                for k, v in got.items())
+    other = {f"{c}.{m}": float(np.max(np.abs(
+        getattr(res.predictions[k], f) - tab[:, cols.index(f"{c}.{m}")])))
+        for k, m in (("combined", "Combined"), ("cgp", "CGP"))
+        for c, f in (("y.hat", "mean"), ("LL", "lower"), ("UL", "upper"))}
+    mc = res.fit.mcmc
+    split = _stage_line({"secs": secs, "stages": stages})
+    log(f"[19a] ground_vibrations golden (size 50 sample 1, rebuilt data, "
+        f"compat_mlegp, n=50 d=9, n_max 5000, samp 1000, net 1000, f64, "
+        f"speculative 0, PRNGKey(1)): {secs:.1f} s on the GPU ({split}); "
+        f"chain {mc.n_recorded} / "
+        f"{mc.n_proposals} (JAX on the same files {JAX_GV_CHAIN}), "
+        f"chain_ok={res.fit.chain_ok}, sigma2={float(res.fit.sigma2):.12g}; "
+        f"{_summary_line(res)}; launches={launches}")
+    log(f"[19a] single GP against R's archived columns ({COMPAT_TABLE}): "
+        f"max abs diff {err_r:.3g} (tol {GV_R_ATOL:g}); the other columns "
+        f"of that table (the JAX package's run): " + ", ".join(
+            f"{k} {v:.3g}" for k, v in other.items())
+        + "; the written table's summary equals the study's")
+    if not err_r < GV_R_ATOL:
+        raise AssertionError(f"GV: single GP {err_r:.3g} from R's fit")
+    if not res.fit.chain_ok:
+        raise AssertionError("GV: chain unhealthy")
+    for k in JAX_GV_RMSPE:
+        if not (abs(s.rmspe[k] - JAX_GV_RMSPE[k]) <= 5e-4
+                and abs(s.coverage[k] - JAX_GV_COVERAGE[k]) <= 5e-4):
+            raise AssertionError(f"GV: {k} {s.rmspe[k]} / {s.coverage[k]} "
+                                 f"differs from the JAX run's "
+                                 f"{JAX_GV_RMSPE[k]} / {JAX_GV_COVERAGE[k]}")
+    if not abs(s.average_quantile - JAX_GV_CALIBRATION) <= 5e-4:
+        raise AssertionError(f"GV: calibration {s.average_quantile}")
+    log(f"[19a] the summary matches RESULTS_compat_mlegp.md's printed "
+        f"digits (the JAX package's run; the same on the rebuilt files): "
+        f"RMSPE {JAX_GV_RMSPE}, coverage {JAX_GV_COVERAGE}, calibration "
+        f"{JAX_GV_CALIBRATION}")
+    return res, launches, secs
+
+
+def gv_serialize(res, tmp):
+    """19e: the golden fit saved on the card, loaded on the CPU and on the
+    card, and predicted again with one key."""
+    from ccgp_tpu_torch.eval.datasets import load_ground_vibrations
+    from ccgp_tpu_torch.models.combination import MixtureSpec
+    from ccgp_tpu_torch.models.combined_gp import predict_combined_gp
+    from ccgp_tpu_torch.models.serialize import load_fit, save_fit
+    from ccgp_tpu_torch.ops import kernels, rng
+
+    gv = load_ground_vibrations(50, 1)
+    spec = MixtureSpec(kernels.sqexp_family(), kernels.sqexp_family(), dim=9)
+    path = tmp / "gv_fit.npz"
+    save_fit(path, res.fit)
+    preds = {}
+    for tag, fit, dev in (("saved", res.fit, "cuda"),
+                          ("loaded on the CPU", load_fit(path, "cpu"), "cpu"),
+                          ("loaded on the card", load_fit(path, "cuda"),
+                           "cuda")):
+        preds[tag] = predict_combined_gp(
+            spec, fit, gv["x_train"], gv["x_test"],
+            rng.PRNGKey(5, device=dev), device=dev)
+    fields = ("mean", "lower", "upper", "quant")
+    same = all(torch.equal(getattr(preds["saved"], f),
+                           getattr(preds["loaded on the card"], f))
+               for f in fields)
+    err = max(_rel_err(getattr(preds["loaded on the CPU"], f),
+                       getattr(preds["saved"], f)) for f in fields)
+    log(f"[19e] save_fit / load_fit of the golden fit ({path.stat().st_size}"
+        f" bytes): the card's prediction from the reloaded fit equals the "
+        f"saved fit's bit for bit: {same}; from the fit loaded on the CPU, "
+        f"predicted there, rel err {err:.3g} (tol {STUDY_RTOL:g}; the "
+        f"CPU's normals part from the card's by ulps)")
+    if not (same and err <= STUDY_RTOL):
+        raise AssertionError("serialize: the reloaded fit predicts "
+                             "otherwise")
+
+
+def _gv_rounds_args(rr, z, seed):
+    """K1's inputs at the GV study's shape: the rebuilt sample-1 training
+    set (n = 50, d = 9), the isotropic SE x SE model with its priors,
+    K = 4 candidates per round around z, f64, stash on."""
+    from ccgp_tpu_torch.eval.datasets import load_ground_vibrations
+    from ccgp_tpu_torch.models.combination import MixtureSpec
+    from ccgp_tpu_torch.models.likelihood import cand_model_for
+    from ccgp_tpu_torch.models.priors import InverseGamma
+    from ccgp_tpu_torch.ops import kernels
+
+    gv = load_ground_vibrations(50, 1)
+    spec = MixtureSpec(kernels.sqexp_family(), kernels.sqexp_family(), dim=9)
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float64,  # noqa: E731
+                               device="cuda")
+    x = t(gv["x_train"])
+    r = np.random.default_rng(seed)
+    kk, dim = 4, 3
+    return dict(x=x, y=t(gv["y_train"]), z=t(z), lp_val=t(-1e6),
+                lp_beta=t(0.0), sigma2=t(10.25),
+                deltas=t(0.3 * r.normal(size=(rr * kk, dim))),
+                log_u=t(np.log(r.uniform(size=(rr, kk)))),
+                model=cand_model_for(spec, x, InverseGamma(3, 1),
+                                     InverseGamma(5, 75)),
+                jitter=0.0, stash=True)
+
+
+def _heat_eb_row(row):
+    """K3's inputs at the heat EB scan's shape: row `row` of the stand-in
+    grid, its 1000 Halton nodes' covariances sigma2_t R_mix + tau^2 J over
+    the stand-in training set (n = 64, d = 4), tau = 50, f64."""
+    from ccgp_tpu_torch.eb.halton import halton
+    from ccgp_tpu_torch.eval.datasets import load_qian
+    from ccgp_tpu_torch.models.combination import (
+        MixParams, MixtureSpec, mixed_gram)
+    from ccgp_tpu_torch.ops import kernels
+    from ccgp_tpu_torch.ops.special import invgamma_quantile
+
+    q = load_qian()
+    a1, b1, a2, b2 = heat_standin_grid()[row]
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float64,  # noqa: E731
+                               device="cuda")
+    p = t(halton(1000, 1)[:, 0])
+    spec = MixtureSpec(kernels.sqexp_family(), kernels.sqexp_family(), dim=4)
+    params = MixParams(p=p, theta1=invgamma_quantile(p, a1, b1),
+                       theta2=invgamma_quantile(p, a2, b2))
+    s2t = 30.0 * (p * p + (1.0 - p) ** 2)
+    covs = s2t[:, None, None] * mixed_gram(spec, t(q["x_train"]), params)
+    return covs + 50.0 ** 2, t(q["y_train"])
+
+
+def new_shape_kernels(z_gv, eb_row):
+    """19f: K1 at the GV shape (K = 4, n = 50, d = 9, f64) and K3 (with K4)
+    at the heat EB shape (B = 1000, n = 64, f64) against their twins bit
+    for bit, then timed as phase 6 times them. Returns {(kernel, shape):
+    (ms, plain ms, library ms, bound)}."""
+    from ccgp_tpu_torch.models.combination import MixtureSpec, mixed_gram, unpack
+    from ccgp_tpu_torch.ops import chol_lanes, chol_smallk, kernels
+
+    bits = recs = 0
+    for rr, seed in ((20, 1), (120, 2), (20, 3)):
+        args = _gv_rounds_args(rr, z_gv, seed)
+        _, b = _compare_rounds(args, F64_RTOL, f"GV shape n=50 d=9 K=4 "
+                               f"R={rr} f64 (seed {seed})", tag="[19f]")
+        bits, recs = bits + b, recs + rr
+    if bits != recs:
+        raise AssertionError(f"K1 at the GV shape: {bits} of {recs} records "
+                             f"bit-equal")
+    covs, y = _heat_eb_row(eb_row)
+    _, nan, unequal = _compare_lanes(covs, y, 0.0, f"heat EB row {eb_row}")
+    if unequal:
+        raise AssertionError(f"K3/K4 at the heat EB shape: {unequal}")
+    log(f"[19f] K1 at the GV shape: {bits} of {recs} records bit-equal; K3 "
+        f"and K4 at the heat EB shape (B=1000, n=64, f64, row {eb_row}, "
+        f"layout {chol_lanes.lanes_layout(64, 1000, torch.float64)[:2]}): "
+        f"bit-equal to the twins, {nan} NaN logdets")
+
+    out = {}
+    spec = MixtureSpec(kernels.sqexp_family(), kernels.sqexp_family(), dim=9)
+    for rr in (120, 20):
+        args = _gv_rounds_args(rr, z_gv, rr)
+        fn = lambda: chol_smallk.fused_mix_mh_rounds(**args)  # noqa: E731
+        call = _cuda_ms(fn, 5)
+        k, how = _kernel_ms("fused_mix_mh_rounds", fn, 3, call)
+        p = _cuda_ms(lambda: chol_smallk.fused_mix_mh_rounds_plain(**args), 1)
+        n, d, kk, dim = 50, 9, 4, 3
+        cz = (args["z"][None, :] + args["deltas"]).reshape(rr, kk, -1)
+        grams = mixed_gram(spec, args["x"], unpack(spec, cz)[0])
+        lib_fn = lambda: [torch.linalg.cholesky_ex(grams[r])  # noqa: E731
+                          for r in range(rr)]
+        lib_call = _cuda_ms(lib_fn, 3)
+        lib, lib_how = _library_ms(lib_fn, 3, lib_call)
+        nbytes = 8 * (n * d + n + dim + 3 + rr * kk * dim + rr * kk
+                      + rr * (dim + 2) + rr * 2 + rr * (n + 2) * n)
+        bound = _bound(nbytes, (rr * kk * n * (n + 1) / 2 * (3 * d + 6),
+                                PEAK_VEC[8]),
+                       (rr * kk * (n ** 3 / 3 + 2 * n * n), PEAK_OPS[8]))
+        log(f"[19f] fused_mix_mh_rounds GV shape n=50 d=9 K=4 R={rr} f64 "
+            f"stash: kernel {k:.4f} ms {how} ({1e3 * k / rr:.1f} us/round; "
+            f"{call:.4f} ms per call) on a cluster of "
+            f"{chol_smallk.rounds_layout(n, kk)[0]} SMs, plain {p:.1f} ms "
+            f"per call, cholesky_ex x R {lib:.4f} ms {lib_how} ({lib_call:.4f}"
+            f" ms per call), bound {bound[0]:.2e} ms ({bound[1]})")
+        out[("fused_mix_mh_rounds", f"GV R={rr}")] = (k, p, lib, bound)
+    fn = lambda: chol_lanes.chol_quadratics_lanes(covs, y)  # noqa: E731
+    call = _cuda_ms(fn, 20)
+    k, how = _kernel_ms("chol_quadratics_lanes", fn, 10, call)
+    p = _cuda_ms(lambda: chol_lanes.chol_quadratics_lanes_plain(covs, y), 1)
+    lib_fn = lambda: _library_lanes(covs, y, 0.0)  # noqa: E731
+    lib_call = _cuda_ms(lib_fn, 10)
+    lib, lib_how = _library_ms(lib_fn, 10, lib_call)
+    bound = _lanes_bound(1000, 64, 8, False)
+    log(f"[19f] chol_quadratics_lanes heat EB row B=1000 n=64 f64: kernel "
+        f"{k:.4f} ms {how} ({call:.4f} ms per call), plain {p:.2f} ms per "
+        f"call, library {lib:.4f} ms {lib_how} ({lib_call:.4f} ms per call), "
+        f"bound {bound[0]:.2e} ms ({bound[1]})")
+    out[("chol_quadratics_lanes", "heat EB row")] = (k, p, lib, bound)
+    return out
+
+
+HEAT_CPU_ROWS = 16   # the GPU's best heat rows the CPU scans, with a spread
+
+
+def phase_case_studies():
+    """19: the data-file case studies: 19a the golden GV study on the GPU;
+    19b-19d each study on the GPU and then on the CPU (the heat scan on
+    the CPU over the GPU's best HEAT_CPU_ROWS rows and every 48th: 624
+    rows of 1000 64 x 64 factorizations on the CPU take minutes), each EB
+    scan also against a CPU scan of the same inputs; 19e save / load; 19f
+    the kernels at the new shapes. Returns ({path: launches}, timings)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    tmp = Path(tempfile.mkdtemp(prefix="ccgp_case_studies_"))
+    before = _data_root(tmp)
+    paths, gpu_s, cpu_s = {}, 0.0, 0.0
+    try:
+        gv_data_root(tmp)
+        standin_data_root(tmp)
+        golden, paths["case study GV golden"], gpu_s = gv_golden(tmp)
+        for name in CASES:
+            _zero_counts()
+            res, secs, stages, choice, call = run_case(name, "cuda")
+            launches = _read_counts()
+            paths[f"case study {name}"] = launches
+            g = _case_record(res, secs, stages, choice)
+            need = ["fused_mix_mh_rounds", "chunk_draws"]
+            if choice is not None:
+                need.append("chol_quadratics_lanes")
+            _require_launched(launches, need, f"{name} study")
+            n_rows = 0 if choice is None else len(choice.likelihoods)
+            if launches["chol_quadratics_lanes"] < n_rows:
+                raise AssertionError(f"{name}: fewer K3 launches than grid "
+                                     f"rows")
+            mc = res.fit.mcmc
+            eb = (f"EB row {int(choice.index)} {choice.pars.tolist()} of "
+                  f"{n_rows}; " if choice is not None else "")
+            log(f"[19] {name} on the GPU (K=4, f64, full budget): {secs:.1f} "
+                f"s ({_stage_line(g)}); {eb}chain {mc.n_recorded} / "
+                f"{mc.n_proposals} / {mc.n_rounds}, chain_ok="
+                f"{res.fit.chain_ok}; {_summary_line(res)}; launches="
+                f"{launches}")
+            if not res.fit.chain_ok:
+                raise AssertionError(f"{name}: chain unhealthy")
+            if not all(math.isfinite(v) for v in res.summary.rmspe.values()):
+                raise AssertionError(f"{name}: non-finite RMSPE")
+            rows = list(range(n_rows))
+            if name == "heat_exchanger":
+                best = torch.argsort(choice.likelihoods.cpu(),
+                                     descending=True)[:HEAT_CPU_ROWS]
+                rows = sorted(set(best.tolist()) | set(range(0, n_rows, 48)))
+                eb_row = int(choice.index)
+                cpu_root = tmp / "cpu"
+                gv_data_root(cpu_root)
+                standin_data_root(cpu_root, heat_rows=rows)
+                _data_root(cpu_root)
+            if name == "ground_vibrations":
+                z_gv = mc.laplace.mode.cpu().tolist()
+            c = _case_record(*run_case(name, "cpu")[:4])
+            _data_root(tmp)
+            gpu_s, cpu_s = gpu_s + g["secs"], cpu_s + c["secs"]
+            err, eb_err = _compare_case(name, g, c,
+                                        rows if choice is not None else None)
+            same = ""
+            if choice is not None:
+                same_err = _eb_same_inputs(name, choice, call, rows)
+                same = (f"; EB on the same inputs {same_err:.3g} (tol "
+                        f"{EB_RTOL:g}), the two studies' scans {eb_err:.3g} "
+                        f"over {len(rows)} of the {n_rows} rows")
+            log(f"[19] {name}: GPU == CPU (chain {g['chain'][:3]}, largest "
+                f"rel err {err:.3g}, tol {STUDY_RTOL:g}{same}); CPU "
+                f"{c['secs']:.1f} s ({_stage_line(c)})")
+        gv_serialize(golden, tmp)
+        times = new_shape_kernels(z_gv, eb_row)
+        log(f"[19] the studies {gpu_s:.1f} s on the GPU, {cpu_s:.1f} s on "
+            f"the CPU (host clock)")
+        return paths, times
+    finally:
+        from ccgp_tpu_torch.eval import datasets
+
+        datasets._DEFAULT_ROOTS = before
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # each counted wrapper's kernels, by the demangled name the profiler gives
 # them: a name is the wrapper's when it holds every substring of one of
 # the wrapper's patterns
@@ -3381,6 +4006,10 @@ def main() -> int:
     t0 = time.perf_counter()
     paths["ME design"], _, _ = phase_me_design()
     log(f"[18] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    case_paths, _ = phase_case_studies()
+    paths.update(case_paths)
+    log(f"[19] phase {time.perf_counter() - t0:.1f} s")
     launches = {k: sum(c[k] for c in paths.values()) for k in _counted()}
     log(f"[launches] per path: {paths}")
     kernels = [

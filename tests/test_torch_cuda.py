@@ -817,3 +817,57 @@ def test_me_design_gpu_equals_cpu(cuda):
     assert torch.equal(sg.cpu(), sc)
     assert _rel(rg.design, rc.design) <= 1e-6
     assert _rel(rg.score, rc.score) <= 1e-9
+
+
+@pytest.fixture(scope="module")
+def case_data(tmp_path_factory):
+    """The rebuilt ground-vibrations data and the heat stand-ins under one
+    root, the port's loaders pointed at it."""
+    import chip_smoke
+    from ccgp_tpu_torch.eval import datasets
+
+    root = tmp_path_factory.mktemp("case_data")
+    chip_smoke.gv_data_root(root, samples=(1,))
+    chip_smoke.standin_data_root(root)
+    before = datasets._DEFAULT_ROOTS
+    datasets._DEFAULT_ROOTS = (str(root),)
+    yield chip_smoke
+    datasets._DEFAULT_ROOTS = before
+
+
+@pytest.mark.parametrize("rr,seed", [(20, 1), (120, 2)])
+def test_rounds_kernel_bit_equal_at_gv_shape(cuda, case_data, rr, seed):
+    """K1 at the ground-vibrations study's shape (K = 4, n = 50, d = 9,
+    f64, the isotropic SE x SE model with its priors, stash on) bit for bit
+    against its twin, as chip_smoke.py's phase 19f holds it."""
+    args = case_data._gv_rounds_args(rr, [0.5, 1.5, 0.0], seed)
+    before = chol_smallk.fused_mix_mh_rounds.launches
+    got = chol_smallk.fused_mix_mh_rounds(**args)
+    torch.cuda.synchronize()
+    assert chol_smallk.fused_mix_mh_rounds.launches == before + 1
+    ref = chol_smallk.fused_mix_mh_rounds_plain(**args)
+    assert int(ref["acc"].sum()) >= 1
+    for k in ("acc", "consumed"):
+        assert torch.equal(got[k], ref[k]), k
+    for k in ("rec", "stash"):
+        a, b = got[k].cpu(), ref[k].cpu()
+        assert torch.equal(torch.isnan(a), torch.isnan(b)), k
+        assert torch.equal(_bits(a.nan_to_num(0.0) + 0.0),
+                           _bits(b.nan_to_num(0.0) + 0.0)), k
+
+
+@pytest.mark.parametrize("row", [0, 311, 623])
+def test_lanes_bit_equal_at_heat_eb_shape(cuda, case_data, row):
+    """K3 and K4 at the heat exchanger's EB scan shape (B = 1000 Halton
+    nodes, n = 64, f64, a stand-in grid row's covariances sigma2_t R_mix +
+    tau^2 J) bit for bit against their twins, one launch each."""
+    covs, y = case_data._heat_eb_row(row)
+    for kern, plain in ((chol_lanes.chol_quadratics_lanes,
+                         chol_lanes.chol_quadratics_lanes_plain),
+                        (chol_lanes.chol_factors_lanes,
+                         chol_lanes.chol_factors_lanes_plain)):
+        before = kern.launches
+        got = kern(covs, y)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        _bit_equal(got, plain(covs, y))
