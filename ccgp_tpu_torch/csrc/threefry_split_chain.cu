@@ -36,6 +36,11 @@
 // (1 - lo is 2 in f32), erfinv and log the CUDA math library's, as
 // PyTorch's elementwise kernels call them.
 //
+// The lanes launch (`chunk_draws_lanes`) runs the same body for L keys at
+// once, a block per lane: the lane-batched K = 1 sampler's stream, the
+// counterpart of the vmapped split / normal / uniform of JAX's K = 1 body
+// (ccgp_tpu/infer/metropolis.py:228-235).
+//
 // Keys travel as int64 words holding uint32 values, the port's key layout.
 
 #include <stdint.h>
@@ -118,13 +123,16 @@ __device__ __forceinline__ double lo_of(double) {
   return -0x1.fffffffffffffp-1;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(DRAW_THREADS)
-chunk_draws_kernel(const int64_t* __restrict__ key, int64_t* __restrict__ new_key,
-                   T* __restrict__ eps, T* __restrict__ log_u, int rr, int K,
-                   int dim) {
+// One chain's rr rounds of keys and draws by the calling block's THREADS
+// threads (`keys` the block's shared segment buffer). The single launch and
+// the lanes launch both run this body, so a lane computes what a single
+// launch on its key computes, in the same thread order.
+template <typename T, int THREADS>
+__device__ __forceinline__ void chunk_draws_body(
+    const int64_t* __restrict__ key, int64_t* __restrict__ new_key,
+    T* __restrict__ eps, T* __restrict__ log_u, int rr, int K, int dim,
+    uint4* keys) {
   using A = Ar<T>;
-  __shared__ uint4 keys[SEG];   // round r of the segment: (k1, k2)
   const int tid = threadIdx.x;
   const T lo = lo_of(T(0));
   const T span = A::sub(T(1), lo);           // hi - lo, rounded to T
@@ -154,7 +162,7 @@ chunk_draws_kernel(const int64_t* __restrict__ key, int64_t* __restrict__ new_ke
       }
     }
     __syncthreads();
-    for (int e = tid; e < m * per; e += DRAW_THREADS) {   // < 2^31
+    for (int e = tid; e < m * per; e += THREADS) {   // < 2^31
       const int r = e / per, c = e - r * per;
       const uint4 kr = keys[r];
       uint32_t x0 = 0u, x1 = (uint32_t)c;
@@ -163,7 +171,7 @@ chunk_draws_kernel(const int64_t* __restrict__ key, int64_t* __restrict__ new_ke
       u = u < lo ? lo : u;   // torch.maximum(lo, u)
       eps[(size_t)s0 * per + e] = A::mul(sqrt2, erfinv_(u));
     }
-    for (int e = tid; e < m * K; e += DRAW_THREADS) {
+    for (int e = tid; e < m * K; e += THREADS) {
       const int r = e / K, c = e - r * K;
       const uint4 kr = keys[r];
       uint32_t x0 = 0u, x1 = (uint32_t)c;
@@ -181,11 +189,54 @@ chunk_draws_kernel(const int64_t* __restrict__ key, int64_t* __restrict__ new_ke
 }
 
 template <typename T>
+__global__ void __launch_bounds__(DRAW_THREADS)
+chunk_draws_kernel(const int64_t* __restrict__ key, int64_t* __restrict__ new_key,
+                   T* __restrict__ eps, T* __restrict__ log_u, int rr, int K,
+                   int dim) {
+  __shared__ uint4 keys[SEG];   // round r of the segment: (k1, k2)
+  chunk_draws_body<T, DRAW_THREADS>(key, new_key, eps, log_u, rr, K, dim,
+                                    keys);
+}
+
+// The lanes launch: a block per lane, each walking its own key chain (its
+// draws are a lane's few hundred values, so a block of LANE_THREADS; the
+// lanes run side by side up to the blocks the card holds at once). Lane l
+// reads keys[l] and writes new_keys[l], eps[l] (rr, K, dim) and log_u[l]
+// (rr, K).
+constexpr int LANE_THREADS = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(LANE_THREADS)
+chunk_draws_lanes_kernel(const int64_t* __restrict__ keys_in,
+                         int64_t* __restrict__ new_keys, T* __restrict__ eps,
+                         T* __restrict__ log_u, int rr, int K, int dim) {
+  __shared__ uint4 keys[SEG];
+  const size_t lane = blockIdx.x;
+  chunk_draws_body<T, LANE_THREADS>(
+      keys_in + 2 * lane, new_keys + 2 * lane,
+      eps + lane * (size_t)rr * K * dim, log_u + lane * (size_t)rr * K, rr,
+      K, dim, keys);
+}
+
+template <typename T>
 int launch_draws(const void* key, void* new_key, void* eps, void* log_u,
                  int rr, int K, int dim, void* stream) {
   if (rr < 1 || K < 1 || dim < 1) return (int)cudaErrorInvalidValue;
   chunk_draws_kernel<T><<<1, DRAW_THREADS, 0, (cudaStream_t)stream>>>(
       (const int64_t*)key, (int64_t*)new_key, (T*)eps, (T*)log_u, rr, K, dim);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_draws_lanes(const void* keys, void* new_keys, void* eps,
+                       void* log_u, int lanes, int rr, int K, int dim,
+                       void* stream) {
+  if (lanes < 1 || rr < 1 || K < 1 || dim < 1)
+    return (int)cudaErrorInvalidValue;
+  chunk_draws_lanes_kernel<T><<<lanes, LANE_THREADS, 0,
+                                (cudaStream_t)stream>>>(
+      (const int64_t*)keys, (int64_t*)new_keys, (T*)eps, (T*)log_u, rr, K,
+      dim);
   return (int)cudaGetLastError();
 }
 
@@ -201,6 +252,22 @@ extern "C" int ccgp_chunk_draws_f64(const void* key, void* new_key, void* eps,
                                     void* log_u, int rr, int K, int dim,
                                     void* stream) {
   return launch_draws<double>(key, new_key, eps, log_u, rr, K, dim, stream);
+}
+
+extern "C" int ccgp_chunk_draws_lanes_f32(const void* keys, void* new_keys,
+                                          void* eps, void* log_u, int lanes,
+                                          int rr, int K, int dim,
+                                          void* stream) {
+  return launch_draws_lanes<float>(keys, new_keys, eps, log_u, lanes, rr, K,
+                                   dim, stream);
+}
+
+extern "C" int ccgp_chunk_draws_lanes_f64(const void* keys, void* new_keys,
+                                          void* eps, void* log_u, int lanes,
+                                          int rr, int K, int dim,
+                                          void* stream) {
+  return launch_draws_lanes<double>(keys, new_keys, eps, log_u, lanes, rr, K,
+                                    dim, stream);
 }
 
 extern "C" int ccgp_threefry_split_chain(const void* key, void* new_key,

@@ -3,8 +3,9 @@
 maximum-entropy design study and the three studies on the reference's data
 (`ground_vibrations`, `heat_exchanger`, `sim_2d_iso_advanced`), which, like
 `batch_me_design`'s default Config, read their files under the data root
-(`eval.datasets`, CCGP_DATA_ROOT). `sim_2d_sweep`, a sweep over the
-reference's 100 training designs, is still to come (ROADMAP queue 1)."""
+(`eval.datasets`, CCGP_DATA_ROOT), and `sim_2d_sweep`, the sweep over
+the reference's 100 training designs (every design a lane of the
+lane-batched K = 1 sampler), which reads the Train_Designs there."""
 from ccgp_tpu_torch.experiments.common import StudyResult, run_study
 from ccgp_tpu_torch.experiments import (
     batch_me_design,
@@ -15,8 +16,9 @@ from ccgp_tpu_torch.experiments import (
     sim_2d_aniso,
     sim_2d_iso,
     sim_2d_iso_advanced,
+    sim_2d_sweep,
 )
 
 PORTED = ("sim_1d", "sim_1d_two_families", "sim_2d_iso", "sim_2d_aniso",
           "batch_me_design", "ground_vibrations", "heat_exchanger",
-          "sim_2d_iso_advanced")
+          "sim_2d_iso_advanced", "sim_2d_sweep")

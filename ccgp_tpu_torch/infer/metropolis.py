@@ -31,6 +31,11 @@ per chunk, or per round):
   sampler would have run, so the chain is draw-for-draw the sequential
   one.
 
+`metropolis_lanes` runs L chains of the K = 1 body side by side (the
+counterpart of `jax.vmap(metropolis)` at speculative=0): one batched
+log-posterior per round for every lane, the lanes' draws `rr` rounds
+ahead from one `ops.rng.chunk_draws_lanes` call.
+
 The loop conditions live on the host: a one-round body reads its
 acceptance back once per round, a chunk its acc/consumed flags once per
 chunk. The Geweke statistic (a few hundred scalar operations) runs on the
@@ -39,6 +44,8 @@ host copy of its window.
 from __future__ import annotations
 
 import math
+
+import numpy as np
 from typing import Callable, NamedTuple
 
 import torch
@@ -296,3 +303,200 @@ def _chunked(logpost, z0, key, fit, n_max, samp_size, batch_size,
         pvalue=s["pv"], converged=s["pv"] >= alpha_geweke, laplace=fit,
         factors=ST, factors_ok=None if ST is None else s["st_ok"],
         n_rounds=s["n_rnd"])
+
+
+# rounds of draws `metropolis_lanes` makes ahead per `chunk_draws_lanes`
+LANES_DRAW_ROUNDS = 120
+
+
+class LanesResult(NamedTuple):
+    """`metropolis_lanes`' chains, each field with a leading lane axis L
+    (the counters on the host). `lane(i)` is lane i as a MetropolisResult."""
+
+    samples: torch.Tensor       # (L, n_max, dim)
+    betas: torch.Tensor         # (L, n_max)
+    logposts: torch.Tensor      # (L, n_max), -inf where unrecorded
+    n_recorded: np.ndarray      # (L,) int64
+    n_proposals: np.ndarray     # (L,)
+    n_accepted: np.ndarray      # (L,)
+    pvalue: np.ndarray          # (L,) final Geweke p-values
+    converged: np.ndarray       # (L,) bool
+    laplace: LaplaceFit         # mode (L, dim), cov (L, dim, dim), (L,)
+    n_rounds: np.ndarray        # (L,) rounds run (= proposals at K = 1)
+
+    def lane(self, i: int) -> MetropolisResult:
+        fit = LaplaceFit(*(f[i] for f in self.laplace))
+        return MetropolisResult(
+            samples=self.samples[i], betas=self.betas[i],
+            logposts=self.logposts[i], n_recorded=int(self.n_recorded[i]),
+            n_proposals=int(self.n_proposals[i]),
+            n_accepted=int(self.n_accepted[i]), pvalue=float(self.pvalue[i]),
+            converged=bool(self.converged[i]), laplace=fit,
+            n_rounds=int(self.n_rounds[i]))
+
+    def retained(self, samp_size: int):
+        """Each lane's last `samp_size` recorded draws, clamped into its
+        recorded range as `MetropolisResult.retained`: (L, samp_size, ...)."""
+        dev = self.samples.device
+        k = torch.as_tensor(self.n_recorded, device=dev)[:, None]
+        idx = torch.clamp(k - samp_size + torch.arange(samp_size, device=dev),
+                          min=0)
+        idx = torch.minimum(idx, torch.clamp(k - 1, min=0))
+        lanes = torch.arange(idx.shape[0], device=dev)[:, None]
+        return (self.samples[lanes, idx], self.betas[lanes, idx],
+                self.logposts[lanes, idx])
+
+    def chain_ok(self, samp_size: int) -> np.ndarray:
+        return self.converged & (self.n_recorded >= samp_size)
+
+
+def metropolis_lanes(
+    logpost_lanes: Callable,
+    starts: torch.Tensor,
+    keys: torch.Tensor,
+    n_max: int,
+    samp_size: int,
+    batch_size: int = 20,
+    alpha_geweke: float = 0.5,
+    record: str = "accepted",
+    proposal_cov_scale: float = 1.4142135623730951,
+    laplace_maxiter: int = 100,
+    max_proposals: int | None = None,
+    laplace_fits: LaplaceFit | None = None,
+) -> LanesResult:
+    """L chains of the K = 1 body as lanes of one loop: lane i is
+    `metropolis(logpost_i, starts[i], keys[i], ...)` at speculative=0.
+
+    logpost_lanes(zs (L, dim)) returns `.val` and `.beta` of shape (L,),
+    lane i's at zs[i] (`models.likelihood.make_logpost_lanes`); its
+    `lane(i)` gives lane i's own log-posterior for the Laplace fit and the
+    start value. Without `lane`, logpost_lanes is one log-posterior that
+    takes a batch (`make_logpost` on shared data) and serves every lane.
+    laplace_fits (fields with a lane axis) resumes each lane from `starts`
+    with its saved fit, as `metropolis(laplace_fit=)` does.
+
+    Each lane has its own Laplace fit (a serial BFGS per lane) and
+    proposal Cholesky. Its state (z, log-posterior, record rows and record
+    count) lives on the device. A lane that hits a cap or a Geweke stop is
+    frozen: it writes no record row, and its counters stop. The random
+    stream does not depend on accept decisions, so every lane's draws are
+    made LANES_DRAW_ROUNDS rounds ahead by one `chunk_draws_lanes` call, and
+    the active lanes, which all step every round, consume them one round
+    per iteration: lane i's round j takes the draws of its serial chain's
+    round j. Each round reads back one flag per lane; the Geweke test runs
+    on the host, for the lanes whose record count reaches a check
+    boundary, on their windows read back together."""
+    if record not in ("accepted", "all"):
+        raise ValueError(record)
+    if starts.ndim != 2 or keys.shape != (starts.shape[0], 2):
+        raise ValueError("metropolis_lanes needs starts (L, dim) and keys "
+                         "(L, 2)")
+    n_lanes, dim = starts.shape
+    dtype, dev = starts.dtype, starts.device
+    if max_proposals is None:
+        max_proposals = 50 * n_max
+    lane_lp = _lane_logposts(logpost_lanes)
+    if laplace_fits is None:
+        laplace_fits = laplace_lanes(logpost_lanes, starts, laplace_maxiter)
+        z0 = laplace_fits.mode
+    else:
+        z0 = starts
+    chols, lpv0, lpb0 = [], [], []
+    with torch.no_grad():
+        for i in range(n_lanes):
+            chols.append(torch.linalg.cholesky(proposal_cov_scale
+                                               * laplace_fits.cov[i]))
+            out0 = lane_lp(i)(z0[i])
+            lpv0.append(out0.val)
+            lpb0.append(out0.beta)
+        return _lanes_loop(logpost_lanes, laplace_fits, z0,
+                           torch.stack(chols), torch.stack(lpv0),
+                           torch.stack(lpb0), keys.to(dev), n_max, samp_size,
+                           batch_size, alpha_geweke, record, max_proposals,
+                           LANES_DRAW_ROUNDS, dim, dtype, dev)
+
+
+def _lane_logposts(logpost_lanes):
+    """i -> lane i's own log-posterior: `logpost_lanes.lane(i)`, or the
+    shared batch-capable log-posterior itself."""
+    lane = getattr(logpost_lanes, "lane", None)
+    return (lambda i: logpost_lanes) if lane is None else lane
+
+
+def laplace_lanes(logpost_lanes, starts: torch.Tensor,
+                  maxiter: int = 100) -> LaplaceFit:
+    """Each lane's Laplace fit from starts[i] on its own log-posterior (a
+    serial BFGS per lane), stacked: mode (L, dim), cov (L, dim, dim),
+    logpost (L,)."""
+    lane_lp = _lane_logposts(logpost_lanes)
+    fits = []
+    for i in range(starts.shape[0]):
+        lp_i = lane_lp(i)
+        fits.append(laplace(lambda z: lp_i(z).val, starts[i],
+                            maxiter=maxiter))
+    return LaplaceFit(*(torch.stack([torch.as_tensor(f[j]).detach()
+                                     for f in fits]) for j in range(3)))
+
+
+def _lanes_loop(logpost_lanes, fits, z, prop_chol, lpv, lpb, keys, n_max,
+                samp_size, batch_size, alpha_geweke, record, max_proposals,
+                rr, dim, dtype, dev) -> LanesResult:
+    n_lanes = z.shape[0]
+    # one packed row [z | beta | logpost] per record and lane, plus a
+    # scratch row n_max that frozen lanes write
+    P = torch.zeros((n_lanes, n_max + 1, dim + 2), dtype=dtype, device=dev)
+    lanes = torch.arange(n_lanes, device=dev)
+    k_rec_d = torch.zeros(n_lanes, dtype=torch.int64, device=dev)
+    k_rec = np.zeros(n_lanes, np.int64)
+    n_prop = np.zeros(n_lanes, np.int64)
+    n_acc = np.zeros(n_lanes, np.int64)
+    pv = np.zeros(n_lanes, np.float64)
+    active = np.ones(n_lanes, bool) if (n_max > 0 and max_proposals > 0) \
+        else np.zeros(n_lanes, bool)
+    active_d = torch.as_tensor(active, device=dev)
+    every = record == "all"
+    j = rr
+    while active.any():
+        if j == rr:
+            keys, eps_c, log_u_c = rng.chunk_draws_lanes(keys, rr, 1, dim,
+                                                         dtype)
+            j = 0
+        cand = z + (prop_chol @ eps_c[:, j, 0, :, None])[..., 0]
+        out = logpost_lanes(cand)
+        accept = (out.val - lpv) > log_u_c[:, j, 0]
+        step = accept & active_d
+        z = torch.where(step[:, None], cand, z)
+        lpv = torch.where(step, out.val, lpv)
+        lpb = torch.where(step, out.beta, lpb)
+        P[lanes, torch.where(active_d, k_rec_d, n_max)] = torch.cat(
+            [z, lpb[:, None], lpv[:, None]], dim=1)
+        k_rec_d += active_d if every else step
+        j += 1
+        acc = accept.cpu().numpy() & active     # the round's one read-back
+        rec = active if every else acc
+        k_rec += rec
+        n_acc += acc
+        n_prop += active
+        check = np.flatnonzero(rec & (k_rec >= samp_size)
+                               & (k_rec % batch_size == 0))
+        if check.size:
+            rows = (torch.as_tensor(k_rec[check] - samp_size)[:, None]
+                    + torch.arange(samp_size))
+            windows = P[torch.as_tensor(check, device=dev)[:, None],
+                        rows.to(dev), :dim].cpu()
+            for c, w in zip(check, windows):
+                pv[c] = float(geweke_pvalue(w))
+        stop = active & ~((k_rec < n_max) & (pv < alpha_geweke)
+                          & (n_prop < max_proposals))
+        if stop.any():
+            active &= ~stop
+            active_d = torch.as_tensor(active, device=dev)
+    recorded = (torch.arange(n_max, device=dev)[None, :]
+                < torch.as_tensor(k_rec, device=dev)[:, None])
+    return LanesResult(
+        samples=P[:, :n_max, :dim], betas=P[:, :n_max, dim],
+        logposts=torch.where(recorded, P[:, :n_max, dim + 1],
+                             torch.full_like(P[:, :n_max, dim + 1],
+                                             -math.inf)),
+        n_recorded=k_rec, n_proposals=n_prop, n_accepted=n_acc, pvalue=pv,
+        converged=pv >= alpha_geweke, laplace=fits, n_rounds=n_prop.copy())

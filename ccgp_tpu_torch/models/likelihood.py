@@ -131,6 +131,45 @@ def make_logpost(spec: MixtureSpec, x: torch.Tensor, y: torch.Tensor,
     return logpost
 
 
+class LanesLogPost:
+    """The log-posteriors of L designs as lanes of one batch: called on
+    zs (L, dim), lane i evaluated at zs[i] on its own xs[i], ys[i] and
+    sigma2[i], it returns a LogPost whose fields carry the lane axis
+    (`.val`, `.beta` (L,)). `lane(i)` is lane i's own `make_logpost`
+    closure (the Laplace fit and the start state take it)."""
+
+    def __init__(self, spec, xs, ys, sigma2, **kw):
+        self.spec, self.xs, self.ys, self.sigma2, self._kw = (
+            spec, xs, ys, sigma2, kw)
+        self._batch = make_logpost(spec, xs, ys, sigma2, **kw)
+
+    def __call__(self, zs: torch.Tensor) -> LogPost:
+        return self._batch(zs)
+
+    def lane(self, i: int):
+        return make_logpost(self.spec, self.xs[i], self.ys[i],
+                            self.sigma2[i], **self._kw)
+
+
+def make_logpost_lanes(spec: MixtureSpec, xs: torch.Tensor, ys: torch.Tensor,
+                       sigma2, theta1_prior=None, theta2_prior=None,
+                       p_prior=None, jitter: float = 0.0,
+                       whiten: bool = False) -> LanesLogPost:
+    """`jax.vmap` of `make_logpost` over designs: xs (L, n, d), ys (L, n),
+    sigma2 (L,) (a scalar is repeated). The L Grams go through the same
+    bordered factorization as `make_logpost`'s, as one (L, n + 2, n + 2)
+    batch, so lane i equals `make_logpost` on design i; like the JAX
+    vmap, it reaches no kernel."""
+    if xs.ndim != 3 or ys.shape != xs.shape[:2]:
+        raise ValueError(f"make_logpost_lanes needs xs (L, n, d) and ys "
+                         f"(L, n); got {tuple(xs.shape)}, {tuple(ys.shape)}")
+    sigma2 = torch.as_tensor(sigma2, dtype=ys.dtype, device=ys.device)
+    sigma2 = torch.broadcast_to(sigma2, ys.shape[:1])
+    return LanesLogPost(spec, xs, ys, sigma2, theta1_prior=theta1_prior,
+                        theta2_prior=theta2_prior, p_prior=p_prior,
+                        jitter=jitter, whiten=whiten)
+
+
 def make_logpost_batch(spec: MixtureSpec, x: torch.Tensor, y: torch.Tensor,
                        sigma2, theta1_prior=None, theta2_prior=None,
                        p_prior=None, jitter: float = 0.0,

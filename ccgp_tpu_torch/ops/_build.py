@@ -45,6 +45,9 @@ _SIGNATURES = {
     # key, new_key, eps, log_u, rr, K, dim, stream
     "ccgp_chunk_draws_f32": [_P] * 4 + [_I] * 3 + [_P],
     "ccgp_chunk_draws_f64": [_P] * 4 + [_I] * 3 + [_P],
+    # keys, new_keys, eps, log_u, L, rr, K, dim, stream
+    "ccgp_chunk_draws_lanes_f32": [_P] * 4 + [_I] * 4 + [_P],
+    "ccgp_chunk_draws_lanes_f64": [_P] * 4 + [_I] * 4 + [_P],
     # x, y, z, st, deltas, log_u, rec, info, stash, ws, model, n, d, dim,
     # R, K, jitter, stream
     "ccgp_mh_rounds_f32": [_P] * 11 + [_I] * 5 + [_D, _P],

@@ -9,6 +9,7 @@ left shift. The layouts are those of jax 0.9 with
 
   PRNGKey(seed)          (seed >> 32, seed & 0xFFFFFFFF)
   split(key, num)        child i = threefry(key, x0=0, x1=i)
+  fold_in(key, data)     threefry(key, x0=0, x1=data)
   random_bits(key, 32)   bits1 ^ bits2 over the flat iota of the shape
   random_bits(key, 64)   (bits1 << 32) | bits2
   uniform / normal       mantissa fill, then sqrt(2) * erfinv
@@ -84,6 +85,19 @@ def _hash(key: torch.Tensor, shape):
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """jax.random.split: key (..., 2) -> (..., num, 2)."""
     b1, b2 = _hash(key, (num,))
+    return torch.stack([b1, b2], dim=-1)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """jax.random.fold_in: key (..., 2) and a uint32 `data` -> (..., 2).
+    JAX seeds threefry with `threefry_seed(data)` = (0, data) and hashes
+    it under the key."""
+    data = int(data)
+    if not 0 <= data <= _M32:
+        raise ValueError(f"fold_in takes a uint32, got {data}")
+    x1 = torch.full(key.shape[:-1], data, dtype=torch.int64,
+                    device=key.device)
+    b1, b2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(x1), x1)
     return torch.stack([b1, b2], dim=-1)
 
 
@@ -252,3 +266,67 @@ def chunk_draws(key: torch.Tensor, rr: int, K: int, dim: int,
 
 
 chunk_draws.launches = 0
+
+
+def _check_lanes(keys: torch.Tensor) -> None:
+    if keys.ndim != 2 or keys.shape[1] != 2 or keys.dtype != torch.int64:
+        raise ValueError("chunk_draws_lanes needs int64 (L, 2) keys")
+    if keys.shape[0] < 1:
+        raise ValueError("chunk_draws_lanes needs at least one lane")
+
+
+def chunk_draws_lanes_plain(keys: torch.Tensor, rr: int, K: int, dim: int,
+                            dtype=torch.float64):
+    """`chunk_draws_plain` over L keys (L, 2): returns (new_keys (L, 2), eps
+    (L, rr, K, dim), log_u (L, rr, K)). The key chains run side by side
+    (integer arithmetic, exact); each lane's draws are made by the same
+    calls, at the same shapes, as its own `chunk_draws_plain`, so lane l
+    is bit-equal to `chunk_draws_plain(keys[l], ...)`."""
+    rr = int(rr)
+    k1s, k2s = [], []
+    for _ in range(rr):
+        ch = split(keys, 3)                    # (L, 3, 2)
+        keys = ch[:, 0]
+        k1s.append(ch[:, 1])
+        k2s.append(ch[:, 2])
+    k1s, k2s = torch.stack(k1s, 1), torch.stack(k2s, 1)   # (L, rr, 2)
+    eps = torch.stack([normal(k1, (K, dim), dtype) for k1 in k1s])
+    log_u = torch.stack([torch.log(uniform(k2, (K,), dtype)) for k2 in k2s])
+    return keys, eps, log_u
+
+
+def chunk_draws_lanes(keys: torch.Tensor, rr: int, K: int, dim: int,
+                      dtype=torch.float64):
+    """`chunk_draws_lanes_plain` as ONE launch of
+    `csrc/threefry_split_chain.cu` for all L lanes on CUDA keys (a block
+    per lane, bit-equal to L single `chunk_draws` launches); the plain
+    version on CPU keys."""
+    _check_lanes(keys)
+    rr, K, dim = int(rr), int(K), int(dim)
+    if rr < 1 or K < 1 or dim < 1:
+        raise ValueError("rr, K and dim must be >= 1")
+    if K * dim >= 1 << 24:
+        raise NotImplementedError("2**24 or more draws per round")
+    if dtype not in _DRAW_DTYPES:
+        raise TypeError(f"chunk_draws_lanes makes float32 or float64, got "
+                        f"{dtype}")
+    if keys.device.type == "cpu":
+        return chunk_draws_lanes_plain(keys, rr, K, dim, dtype)
+    if keys.device.type != "cuda":
+        raise ValueError(f"unsupported device {keys.device}")
+    keys = keys.contiguous()
+    lanes = keys.shape[0]
+    new_keys = torch.empty_like(keys)
+    eps = torch.empty((lanes, rr, K, dim), dtype=dtype, device=keys.device)
+    log_u = torch.empty((lanes, rr, K), dtype=dtype, device=keys.device)
+    lib = _build.library()
+    fn = (lib.ccgp_chunk_draws_lanes_f32 if dtype == torch.float32
+          else lib.ccgp_chunk_draws_lanes_f64)
+    chunk_draws_lanes.launches += 1
+    _build.check(fn(_build.ptr(keys), _build.ptr(new_keys), _build.ptr(eps),
+                    _build.ptr(log_u), lanes, rr, K, dim,
+                    _build.stream(keys.device)), "chunk_draws_lanes")
+    return new_keys, eps, log_u
+
+
+chunk_draws_lanes.launches = 0

@@ -76,7 +76,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      and us/round;
  12. the 1-D models at full width (n = 8, 50 points, f64, function 1 on
      the `random_lhs` design `sim_1d.run` draws from PRNGKey(0), the
-     --fast MCMC budget): `sim_1d`'s Matern x Matern and
+     --fast MCMC budget; the CPU fits in a child process beside the
+     card's): `sim_1d`'s Matern x Matern and
      `sim_1d_two_families`' Matern x spline with speculative
      K = 4 (K5 once per round, K4 for the factor rebuild), and the K = 1
      sampler on Matern x Matern; each on the GPU and on the CPU (plain
@@ -151,12 +152,39 @@ Phases, in order; any failure raises and the script exits non-zero:
      and K3 / K4 at the heat EB shape (B = 1000, n = 64) against their
      twins bit for bit, then timed as in phase 6.
 
-Every path (5, 8, 9, 10, 12, 13, 15, 16, 17, 18, 19) runs with all launch
-counters set to 0 just before it and read just after; each must launch
-its kernels (K2's fused kernel once per chunk, 38 in the bench fit, and
-once per round on the one-round and 1-D routes). The
-last lines are a JSON object of kernel records (K1-K9), the card's name and
-power limit, and `{"ok": true, "device": {...}}`.
+ 20. the multi-design sweep at full width: K2's lanes launch
+     (`chunk_draws_lanes`, a block per lane) bit for bit against its plain
+     version and against L single `chunk_draws` launches (100 lanes x 120
+     rounds, K = 1, dim = 3, and three other shapes, f32 and f64); then
+     `sim_2d_sweep.run(Config(n_designs=100))` on the stand-in
+     Train_Designs (`sweep_standin_designs`), f64, key 0, Config()'s 15 x
+     15 lattice and budget (n_max 3000, samp 600, net 400), every design a
+     lane of the K = 1 sampler: its time and the share of each stage
+     (plug-in, Laplace, the lane loop, predict), its rounds, healthy
+     chains, K2's lanes launch once per 120 rounds and K4 once per design,
+     the device-busy share under torch.profiler (two windows: five designs'
+     Laplace fits, 360 lane-loop rounds on all lanes); lanes 0-2 on the CPU with
+     the same designs and keys (equal chains, summaries within 1e-8); then
+     `python -m ccgp_tpu_torch sim_2d_sweep --designs 100` (f32) and its
+     medians, in a child process that runs beside phases 3-14 (whose
+     checks do not depend on time) and is collected before phase 5;
+ 21. the parallel surface: `graft_entry.dryrun_multichip(4)` on the card
+     four times over against the one-device mesh (the training step and
+     the four sharded functions, 1e-4), HMC on the sweep's first design's
+     posterior on the card against the CPU (f64, 200 warmup iterations and
+     200 draws, 8 leapfrog steps: the first draw where the chains part,
+     if they do; then
+     50 draws without warmup, which must stay within 1e-6), and
+     `entry()`'s forward (float32 finite; float64 card against CPU within
+     1e-10).
+
+Every path (5, 8, 9, 10, 12, 13, 15, 16, 17, 18, 19, 20, 21) runs with all
+launch counters set to 0 just before it and read just after; each must
+launch its kernels (K2's fused kernel once per chunk, 38 in the bench fit,
+and once per round on the one-round and 1-D routes; its lanes launch once
+per 120 rounds of the sweep). The last lines are a JSON object of kernel
+records (K1-K9 and K2's lanes launch), the card's name and power limit,
+and `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -510,6 +538,7 @@ def _counted():
 
     return {"threefry_split_chain": rng.threefry_split_chain,
             "chunk_draws": rng.chunk_draws,
+            "chunk_draws_lanes": rng.chunk_draws_lanes,
             "fused_mix_mh_rounds": chol_smallk.fused_mix_mh_rounds,
             "chol_quadratics_lanes": chol_lanes.chol_quadratics_lanes,
             "chol_factors_lanes": chol_lanes.chol_factors_lanes,
@@ -1277,29 +1306,79 @@ def _guards_1d(fit, pred, y_true, label):
     return rmspe, cover, ess
 
 
+CASES_1D = (("sim_1d", 4), ("sim_1d_two_families", 4), ("sim_1d", 0))
+
+
+def _fits_1d_cpu(queue) -> None:
+    """Phase 12's CPU sides, one after another, in a child process (spawn):
+    each case's chain counters, draws, sigma^2, predictions and host ms,
+    as numpy, put on `queue` (or the error's traceback). The child leaves
+    two cores to the parent, whose card fits are host-bound."""
+    import os
+    import traceback
+
+    try:
+        torch.set_num_threads(max(1, (os.cpu_count() or 4) - 2))
+        out = {}
+        for name, K in CASES_1D:
+            t0 = time.perf_counter()
+            fc, pc, _, _ = fit_predict_1d(name, K, "cpu")
+            m = fc.mcmc
+            out[(name, K)] = {
+                "chain": (m.n_recorded, m.n_proposals, m.n_rounds,
+                          m.converged),
+                "zs": fc.zs.numpy(), "sigma2": fc.sigma2.numpy(),
+                **{a: getattr(pc, a).numpy()
+                   for a in ("mean", "lower", "upper")},
+                "ms": (time.perf_counter() - t0) * 1e3}
+        queue.put(out)
+    except Exception:   # the parent raises with it
+        queue.put(traceback.format_exc())
+
+
 def phase_1d():
+    """The 1-D models on the card, each against the same fit on the CPU;
+    the CPU fits run in a child process beside the card's."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    child = ctx.Process(target=_fits_1d_cpu, args=(queue,))
+    child.start()
+    gpu = {}
+    try:
+        for name, K in CASES_1D:
+            _zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fg, pg, _, y_true = fit_predict_1d(name, K, "cuda")
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            gpu[(name, K)] = (fg, pg, y_true, ms, _read_counts())
+        cpu = queue.get(timeout=1800)   # drained before the join
+    finally:
+        child.join(timeout=60)
+        if child.is_alive():
+            child.kill()
+            child.join()
+    if isinstance(cpu, str):
+        raise AssertionError(f"phase 12's CPU fits failed:\n{cpu}")
     paths = {}
-    for name, K in (("sim_1d", 4), ("sim_1d_two_families", 4),
-                    ("sim_1d", 0)):
+    for name, K in CASES_1D:
         label = f"{name} K={K or 1}"
-        _zero_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fg, pg, _, y_true = fit_predict_1d(name, K, "cuda")
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        launches = _read_counts()
-        t0 = time.perf_counter()
-        fc, pc, _, _ = fit_predict_1d(name, K, "cpu")
-        cpu_ms = (time.perf_counter() - t0) * 1e3
-        mg, mc = fg.mcmc, fc.mcmc
-        for a in ("n_recorded", "n_proposals", "n_rounds", "converged"):
-            if getattr(mg, a) != getattr(mc, a):
+        fg, pg, y_true, ms, launches = gpu[(name, K)]
+        c = cpu[(name, K)]
+        mg = fg.mcmc
+        chain = (mg.n_recorded, mg.n_proposals, mg.n_rounds, mg.converged)
+        for a, g, v in zip(("n_recorded", "n_proposals", "n_rounds",
+                            "converged"), chain, c["chain"]):
+            if g != v:
                 raise AssertionError(f"{label}: {a} differs GPU vs CPU")
-        err_z = _rel_err(fg.zs, fc.zs)
-        err_p = max(_rel_err(getattr(pg, a), getattr(pc, a))
+        t = torch.from_numpy
+        err_z = _rel_err(fg.zs, t(c["zs"]))
+        err_p = max(_rel_err(getattr(pg, a), t(c[a]))
                     for a in ("mean", "lower", "upper"))
-        err_s2 = _rel_err(fg.sigma2, fc.sigma2)
+        err_s2 = _rel_err(fg.sigma2, t(c["sigma2"]))
         if not (err_z <= PATH_1D_RTOL and err_p <= PATH_1D_RTOL):
             raise AssertionError(f"{label}: GPU vs CPU draws {err_z:.3g}, "
                                  f"predictions {err_p:.3g} > {PATH_1D_RTOL:g}")
@@ -1311,7 +1390,8 @@ def phase_1d():
             f"decisions; sigma2 {err_s2:.3g}, draws {err_z:.3g}, predictions "
             f"{err_p:.3g}, tol {PATH_1D_RTOL:g}); fit+predict {ms:.1f} "
             f"ms on the GPU ({1e3 * ms / mg.n_rounds:.1f} us/round), "
-            f"{cpu_ms:.1f} ms on the CPU (host clock); launches={launches}")
+            f"{c['ms']:.1f} ms on the CPU (host clock, in the child process "
+            f"beside the card's fits); launches={launches}")
         if K > 1 and launches["chol_quadratics_smallk"] != mg.n_rounds:
             raise AssertionError(f"{label}: K5 must launch once per round")
         if launches["chunk_draws"] != mg.n_rounds:
@@ -2754,6 +2834,18 @@ def heat_standin_grid() -> np.ndarray:
                      for b2 in np.geomspace(16.0, 256.0, 13)])
 
 
+SWEEP_DESIGN_SEED = 2014   # default_rng seed of the sweep's stand-in designs
+SWEEP_DESIGNS = 100        # the reference ships Train_Design_{1..100}
+
+
+def sweep_standin_designs(n_designs=SWEEP_DESIGNS) -> np.ndarray:
+    """(n_designs, 14, 2) stand-ins for the reference's Train_Designs,
+    which are not in the repo: size-14 Latin hypercubes on [0, 1]^2 drawn
+    one after another from `default_rng(SWEEP_DESIGN_SEED)`."""
+    g = np.random.default_rng(SWEEP_DESIGN_SEED)
+    return np.stack([_lhs(g, 14, 2) for _ in range(n_designs)])
+
+
 def standin_data_root(root, heat_rows=None):
     """Write stand-ins for the files `heat_exchanger` and
     `sim_2d_iso_advanced` read, which are not in the repo, under `root` in
@@ -2765,7 +2857,9 @@ def standin_data_root(root, heat_rows=None):
       sequence of row indices);
     * `maximin 14 pts.txt`: phase 16's design, the 14-point maximin LHS
       that `sim_2d_aniso.run` draws from PRNGKey(0);
-    * the 2-D grid: `eb_grid()`'s 60 rows.
+    * the 2-D grid: `eb_grid()`'s 60 rows;
+    * `Training Designs/Train_Design_{1..100}.txt`: the sweep's designs,
+      `sweep_standin_designs()`, in R's header format.
 
     Numbers from these files are not the reference's."""
     from pathlib import Path
@@ -2792,6 +2886,9 @@ def standin_data_root(root, heat_rows=None):
     with open(d2 / "maximin 14 pts.txt", "w") as fh:
         fh.writelines(f"{float(a)!r} {float(b)!r}\n" for a, b in design)
     _write_r_table(d2 / "hyperpars.matrix.txt", pars, eb_grid())
+    for i, dsg in enumerate(sweep_standin_designs()):
+        _write_r_table(d2 / "Training Designs" / f"Train_Design_{i + 1}.txt",
+                       ["x1", "x2"], dsg)
     return root
 
 
@@ -3269,6 +3366,7 @@ def phase_case_studies():
 # the wrapper's patterns
 _SYMBOLS = {"threefry_split_chain": (("split_chain_kernel",),),
             "chunk_draws": (("chunk_draws_kernel<",),),
+            "chunk_draws_lanes": (("chunk_draws_lanes_kernel<",),),
             "fused_mix_mh_rounds": (("mh_rounds_kernel<",),),
             # K3 and K4 share two kernels, the factor output a flag
             "chol_quadratics_lanes": (("lanes_warp_kernel<", ", false>"),
@@ -3757,11 +3855,53 @@ def _k2_timing():
     return out
 
 
+K2_LANES = 100   # the sweep's lanes: its 100 designs
+
+
+def _k2_lanes_timing(floor):
+    """K2's lanes launch at the sweep's shape (L = 100 lanes, rr = 120,
+    K = 1, dim = 3) in f32 and f64: device and per-call time, the L single
+    `chunk_draws` launches it replaces (their device time and their time
+    per call), its plain version per call. Its bound is one lane's serial
+    floor `floor` (the lanes run side by side: 100 blocks fit on the card
+    at once), beside the roofline over all lanes' work."""
+    from ccgp_tpu_torch.ops import rng
+
+    out = {}
+    keys = rng.split(rng.PRNGKey(7, device="cuda"), K2_LANES)
+    for dtype in (torch.float32, torch.float64):
+        fn = lambda: rng.chunk_draws_lanes(keys, 120, 1, 3, dtype)  # noqa: E731
+        call = _cuda_ms(fn, 50)
+        k, how = _kernel_ms("chunk_draws_lanes", fn, 50, call)
+        singles = lambda: [rng.chunk_draws(keys[i], 120, 1, 3, dtype)  # noqa: E731
+                           for i in range(K2_LANES)]
+        s_call = _cuda_ms(singles, 5)
+        by_name, launched = _device_profile(singles, 3)
+        s_dev, seen = _of_kernel("chunk_draws", by_name)
+        s_how = ("on the device" if seen == launched["chunk_draws"]
+                 else f"profiler kept {seen} of {launched['chunk_draws']} "
+                      "records")
+        p = _cuda_ms(lambda: rng.chunk_draws_lanes_plain(keys, 120, 1, 3,
+                                                         dtype), 1)
+        elem = torch.finfo(dtype).bits // 8
+        roof = _k2_bound(120 * K2_LANES, 1, 3, elem)
+        log(f"[6] chunk_draws_lanes L={K2_LANES} rr=120 K=1 dim=3 {dtype}: "
+            f"kernel {k:.4f} ms {how} ({call:.4f} ms per call); {K2_LANES} "
+            f"single chunk_draws launches {s_dev:.4f} ms of device time "
+            f"({s_how}), {s_call:.4f} ms per call; plain {p:.1f} ms per "
+            f"call; bound: one lane's serial floor {floor:.4f} ms (roofline "
+            f"over the {K2_LANES} lanes {roof[0]:.2e} ms, {roof[1]})")
+        out[("chunk_draws_lanes", dtype)] = (k, p, None, (floor, "serial"))
+        out[("chunk_draws_lanes singles", dtype)] = (s_dev, s_call)
+    return out
+
+
 def phase_timing(fit):
     from ccgp_tpu_torch.models.combination import mixed_gram, unpack
     from ccgp_tpu_torch.ops import chol_smallk
 
     out = _k2_timing()
+    out.update(_k2_lanes_timing(out[("chunk_draws floor", 120)]))
     for rr in (120, 20):
         args = _rounds_case(100, rr, torch.float32, 1e-3, seed=rr)
         fn = lambda: chol_smallk.fused_mix_mh_rounds(**args)  # noqa: E731
@@ -3955,6 +4095,361 @@ def _k8_k9_timing():
     return out
 
 
+# ---------------------------------------------------------------------------
+# the multi-design sweep and the parallel surface
+# ---------------------------------------------------------------------------
+
+SWEEP_RTOL = 1e-8        # the sweep's lanes 0-2, GPU against CPU, f64
+SWEEP_CPU_LANES = 3
+LANES_SHAPES = ((K2_LANES, 120, 1, 3), (K2_LANES, 1, 1, 3), (3, 7, 1, 3),
+                (7, 129, 4, 4))
+
+
+def _k2_lanes_bit_equal():
+    """K2's lanes launch against its plain version on the card and against
+    L single `chunk_draws` launches, bit for bit, at the sweep's shape
+    (100 lanes x 120 rounds, K = 1, dim = 3), a one-round chunk, a few
+    lanes and a two-segment chunk (rr = 129 > SEG) with K = 4, f32 and
+    f64. Returns the count of records compared."""
+    from ccgp_tpu_torch.ops import rng
+
+    n = 0
+    for lanes, rr, kk, dim in LANES_SHAPES:
+        keys = rng.split(rng.PRNGKey(lanes + rr, device="cuda"), lanes)
+        for dtype in (torch.float32, torch.float64):
+            got = rng.chunk_draws_lanes(keys, rr, kk, dim, dtype)
+            ref = rng.chunk_draws_lanes_plain(keys, rr, kk, dim, dtype)
+            one = [rng.chunk_draws(keys[i], rr, kk, dim, dtype)
+                   for i in range(lanes)]
+            torch.cuda.synchronize()
+            for i, what in ((0, "keys"), (1, "normals"), (2, "log-uniforms")):
+                single = torch.stack([o[i] for o in one])
+                bits = (lambda t: t) if i == 0 else _bits
+                if not (torch.equal(bits(got[i]), bits(ref[i]))
+                        and torch.equal(bits(got[i]), bits(single))):
+                    raise AssertionError(
+                        f"chunk_draws_lanes {what} differ at L={lanes} "
+                        f"rr={rr} K={kk} dim={dim} {dtype}")
+            n += 1
+    log(f"[20] chunk_draws_lanes == its plain version == L single "
+        f"chunk_draws launches, bit for bit, on {n} of {n} records (L x rr x "
+        f"K x dim in {LANES_SHAPES}, f32 and f64)")
+    return 0.0
+
+
+def _device_ns(prof, since_ns=None) -> int:
+    """The device time (ns) of a profiler's records, from its raw results
+    (millions of records take minutes to turn into FunctionEvents,
+    seconds to sum raw); with since_ns, only records that start after it
+    (the profiler's clock)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda
+               and (since_ns is None or e.start_ns() >= since_ns))
+
+
+class _Window(Exception):
+    """Ends a profiled window of the lane loop."""
+
+
+SWEEP_WINDOW_CHUNKS = 3     # lane-loop chunks (120 rounds each) profiled
+SWEEP_LAPLACE_LANES = 5     # Laplace fits profiled
+
+
+def _sweep_busy(lanes, n_max, samp):
+    """The sweep's device-busy share under torch.profiler, in two windows
+    (the whole sweep is ~10^7 device records, which the profiler takes
+    minutes to hand over): the Laplace fits of the first
+    SWEEP_LAPLACE_LANES designs, and SWEEP_WINDOW_CHUNKS x 120 rounds of
+    the lane loop on all 100 lanes, resumed from the sweep's own fits and
+    stopped at the next chunk's draws. Returns (Laplace share, loop
+    share), each busy / wall of its window."""
+    from types import SimpleNamespace
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ccgp_tpu_torch.infer import metropolis as metro
+    from ccgp_tpu_torch.ops import rng
+
+    lp, fits, keys = lanes
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        metro.laplace_lanes(lp, fits.mode[:SWEEP_LAPLACE_LANES].clone())
+        torch.cuda.synchronize()
+        lap_wall = (time.perf_counter() - t0) * 1e3
+    lap = _device_ns(prof) / 1e6 / lap_wall
+    calls = []
+
+    def draws(*a):
+        calls.append(time.perf_counter())
+        if len(calls) > SWEEP_WINDOW_CHUNKS:
+            torch.cuda.synchronize()
+            raise _Window
+        return rng.chunk_draws_lanes(*a)
+
+    before = metro.rng
+    metro.rng = SimpleNamespace(chunk_draws_lanes=draws)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            try:
+                metro.metropolis_lanes(lp, fits.mode, keys, n_max=n_max,
+                                       samp_size=samp, laplace_fits=fits)
+            except _Window:
+                pass
+    finally:
+        metro.rng = before
+    loop_wall = (calls[-1] - calls[0]) * 1e3
+    # the window's records: from the first chunk's draws on
+    first = min(e.start_ns() for e in prof.profiler.kineto_results.events()
+                if e.device_type() == torch.autograd.DeviceType.CUDA
+                and "chunk_draws_lanes_kernel" in e.name())
+    loop = _device_ns(prof, first) / 1e6 / loop_wall
+    log(f"[20] sweep device busy under torch.profiler: the Laplace fits of "
+        f"{SWEEP_LAPLACE_LANES} designs {100 * lap:.1f}% of {lap_wall:.0f} "
+        f"ms; {SWEEP_WINDOW_CHUNKS * 120} lane-loop rounds on all lanes "
+        f"{100 * loop:.1f}% of {loop_wall:.0f} ms "
+        f"({loop_wall / (SWEEP_WINDOW_CHUNKS * 120):.2f} ms per round)")
+    return lap, loop
+
+
+def _sweep_cli_start(root):
+    """Start `python -m ccgp_tpu_torch sim_2d_sweep --designs 100` (f32,
+    the card) on the stand-ins under `root` in a child process;
+    `_sweep_cli_end` collects it."""
+    import os
+    from pathlib import Path
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ccgp_tpu_torch", "sim_2d_sweep", "--designs",
+         str(SWEEP_DESIGNS)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=Path(__file__).resolve().parent,
+        env={**os.environ, "CCGP_DATA_ROOT": str(root)})
+    return proc, time.perf_counter()
+
+
+def _sweep_cli_end(cli):
+    proc, t0 = cli
+    try:
+        out, err = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the sweep's CLI failed ({proc.returncode}):\n"
+                             f"{out}\n{err[-3000:]}")
+    lines = out.strip().splitlines()
+    if len(lines) != 3 or not lines[0].startswith(
+            f"sweep over {SWEEP_DESIGNS} designs"):
+        raise AssertionError(f"the sweep's CLI printed {lines}")
+    log(f"[20] CLI sim_2d_sweep --designs {SWEEP_DESIGNS} (f32, the card, "
+        f"in a child process beside phases 3-14) in {secs:.1f} s: "
+        + " / ".join(x.strip() for x in lines))
+
+
+def phase_sweep(root):
+    """The sweep at full width: the reference's 100 designs (stand-ins
+    under `root`), Config()'s 15 x 15 lattice and MCMC budget, f64, key 0,
+    every design a lane of the K = 1 sampler; then lanes 0-2 on the
+    CPU. (Its CLI run in f32 goes beside phases 3-14.)"""
+    from ccgp_tpu_torch.eval import datasets
+    from ccgp_tpu_torch.experiments import sim_2d_sweep as sw
+    from ccgp_tpu_torch.ops import rng
+
+    err = _k2_lanes_bit_equal()
+    before = datasets._DEFAULT_ROOTS
+    try:
+        datasets._DEFAULT_ROOTS = (str(root),)
+        cfg = sw.Config(n_designs=SWEEP_DESIGNS)
+
+        def run(stages=None):
+            return sw.run(cfg, key=rng.PRNGKey(0, device="cuda"),
+                          dtype=torch.float64, device="cuda", stages=stages)
+
+        stages = {}
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(stages)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = _read_counts()
+        ch = stages.pop("chains")
+        lanes = stages.pop("lanes")
+        m = SWEEP_DESIGNS
+        for f in ("rmspe", "coverage", "quant"):
+            v = getattr(res, f)
+            if v.shape != (m,) or not np.isfinite(v).all():
+                raise AssertionError(f"sweep {f}: {v.shape}, non-finite")
+        if not ((res.coverage >= 0) & (res.coverage <= 1)).all():
+            raise AssertionError("sweep coverage outside [0, 1]")
+        _require_launched(launches, ("chunk_draws_lanes",
+                                     "chol_factors_lanes"), "sweep")
+        iters = int(ch.n_rounds.max())
+        if launches["chunk_draws_lanes"] != -(-iters // 120):
+            raise AssertionError(f"K2's lanes launch ran {launches} times "
+                                 f"for {iters} rounds")
+        if launches["chol_factors_lanes"] != m:
+            raise AssertionError(f"K4 ran {launches['chol_factors_lanes']} "
+                                 f"times for {m} designs")
+        shares = ", ".join(f"{k} {v:.2f} s ({100 * v / secs:.0f}%)"
+                           for k, v in stages.items())
+        log(f"[20] sweep over {m} designs (f64, key 0, n_max "
+            f"{cfg.mcmc.n_max}, samp {cfg.mcmc.samp_size}, net "
+            f"{cfg.mcmc.net_samp_size}, {cfg.n_new_axis}^2 lattice) on the "
+            f"card: {secs:.2f} s; {shares}; {iters} rounds of the lane loop "
+            f"(per lane {int(ch.n_rounds.min())}-{iters}, median "
+            f"{int(np.median(ch.n_rounds))}, {int(ch.n_rounds.sum())} in "
+            f"all), healthy chains {int(res.chain_ok.sum())}/{m}; RMSPE "
+            f"median {np.median(res.rmspe):.4f}, coverage median "
+            f"{np.median(res.coverage):.3f}, calibration mean "
+            f"{res.quant.mean():.3f}; launches {launches}")
+        lap, loop = _sweep_busy(lanes, cfg.mcmc.n_max,
+                                cfg.mcmc.samp_size)
+        est = (lap * stages["laplace"] + loop * stages["rounds"]) / secs
+        log(f"[20] the sweep's device-busy share, its Laplace and lane-loop "
+            f"stages weighted by their times (the plug-in and predict, "
+            f"{100 * (stages['plug-in'] + stages['predict']) / secs:.1f}% of "
+            f"it, not profiled): {100 * est:.1f}%")
+
+        # lanes 0-2 on the CPU: the same designs and keys
+        designs = torch.tensor(np.stack([datasets.load_2d_training_design(i)
+                                         for i in range(1, SWEEP_CPU_LANES + 1)]),
+                               dtype=torch.float64)
+        keys = rng.split(rng.PRNGKey(0, device="cpu"), m)[:SWEEP_CPU_LANES]
+        x_new, y_true = sw.design_grid(cfg, torch.float64, torch.device("cpu"))
+        cst = {}
+        t0 = time.perf_counter()
+        cpu = sw.sweep(cfg, designs, keys, x_new, y_true, cst)
+        csecs = time.perf_counter() - t0
+        cc = cst.pop("chains")
+        cst.pop("lanes")
+        for f in ("n_recorded", "n_proposals", "n_accepted"):
+            if not np.array_equal(getattr(ch, f)[:SWEEP_CPU_LANES],
+                                  getattr(cc, f)):
+                raise AssertionError(f"sweep lanes 0-2 {f}: card "
+                                     f"{getattr(ch, f)[:3]}, CPU "
+                                     f"{getattr(cc, f)}")
+        worst = 0.0
+        for f, c in zip(("rmspe", "coverage", "quant"), cpu[:3]):
+            g = getattr(res, f)[:SWEEP_CPU_LANES]
+            worst = max(worst, float(np.max(np.abs(g - c)
+                                            / np.maximum(np.abs(c), 1e-300))))
+        if not worst <= SWEEP_RTOL:
+            raise AssertionError(f"sweep lanes 0-2 card vs CPU: {worst:.3e}")
+        if not np.array_equal(res.chain_ok[:SWEEP_CPU_LANES], cpu[3]):
+            raise AssertionError("sweep lanes 0-2: chain_ok differs")
+        log(f"[20] sweep lanes 0-{SWEEP_CPU_LANES - 1} on the CPU ({csecs:.1f} "
+            f"s; " + ", ".join(f"{k} {v:.2f} s" for k, v in cst.items())
+            + f"): the same chains (recorded {cc.n_recorded.tolist()}, "
+            f"proposals {cc.n_proposals.tolist()}), summaries within "
+            f"{worst:.2e} of the card's (guard {SWEEP_RTOL:g})")
+    finally:
+        datasets._DEFAULT_ROOTS = before
+    return launches, err
+
+
+HMC_RTOL = 1e-6   # HMC samples, card against CPU, f64
+HMC_STRICT_DRAWS = 50
+HMC_LEAPFROG = 8
+
+
+def _hmc_run(device, n_warmup=200, n_samples=200):
+    """HMC on the sweep's first stand-in design's posterior (its plug-in
+    sigma^2 and priors, f64), preconditioned by its Laplace covariance."""
+    from ccgp_tpu_torch.eval.functions import test_function_2d
+    from ccgp_tpu_torch.experiments import sim_2d_sweep as sw
+    from ccgp_tpu_torch.infer.hmc import hmc
+    from ccgp_tpu_torch.infer.laplace import laplace
+    from ccgp_tpu_torch.models.combination import MixtureSpec
+    from ccgp_tpu_torch.models.likelihood import make_logpost
+    from ccgp_tpu_torch.models.priors import InverseGamma
+    from ccgp_tpu_torch.ops import kernels, rng
+
+    x = torch.tensor(sweep_standin_designs(1)[0], device=device)
+    y = test_function_2d(x, 2)
+    s2 = sw.plugin_sigma2(x[None], y[None], 1e-5)[0]
+    fam = kernels.sqexp_family()
+    lp = make_logpost(MixtureSpec(fam, fam, dim=2), x, y, s2,
+                      theta1_prior=InverseGamma(3, 2),
+                      theta2_prior=InverseGamma(5, 16), jitter=1e-5)
+    start = torch.tensor([1.0, 1.0, 0.0], dtype=torch.float64, device=device)
+    fit = laplace(lambda z: lp(z).val, start)
+    t0 = time.perf_counter()
+    res = hmc(lambda z: lp(z).val, fit.mode.detach(),
+              rng.PRNGKey(3, device=device), n_samples=n_samples,
+              n_warmup=n_warmup, n_leapfrog=HMC_LEAPFROG,
+              mass_cov=fit.cov.detach())
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def _hmc_compare(tag, g, c):
+    d = (g.samples.cpu() - c.samples).abs().amax(-1).numpy()
+    far = np.flatnonzero(d > HMC_RTOL)
+    step = abs(float(g.step_size) - float(c.step_size))
+    log(f"[21] HMC {tag}, card vs CPU: step sizes {float(g.step_size):.6g} / "
+        f"{float(c.step_size):.6g} (differ by {step:.2e}), divergent "
+        f"{int(g.n_divergent)} / {int(c.n_divergent)}, accept "
+        f"{float(g.accept_rate):.3f} / {float(c.accept_rate):.3f}; samples "
+        + (f"within {float(d.max()):.2e} (guard {HMC_RTOL:g})" if not far.size
+           else f"part at draw {int(far[0])} of {len(d)} (max difference "
+                f"{float(d.max()):.3g}; within {float(d[:far[0]].max()) if far[0] else 0.0:.2e} "
+                "before it)"))
+    return far
+
+
+def phase_parallel_surface():
+    """`dryrun_multichip(4)` on the card repeated four times against the
+    one-device mesh; HMC on the card against the CPU (f64, 200 warmup and
+    200 draws, then 50 draws without warmup); `entry()`'s forward."""
+    from ccgp_tpu_torch.graft_entry import _flagship, dryrun_multichip, entry
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    par = dryrun_multichip(4, device="cuda")
+    launches = _read_counts()
+    log(f"[21] dryrun_multichip(4) on cuda:0 x 4 in "
+        f"{time.perf_counter() - t0:.1f} s: parities against the one-device "
+        f"mesh " + ", ".join(f"{k} {v:.2e}" for k, v in par.items())
+        + f" (guard 1e-4); launches {launches}")
+    _require_launched(launches, ("chunk_draws_lanes",), "dry run")
+
+    g, gs = _hmc_run("cuda")
+    c, cs = _hmc_run("cpu")
+    log(f"[21] HMC 200 warmup + 200 draws ({HMC_LEAPFROG} leapfrog steps, f64): "
+        f"{gs:.1f} s on the card, {cs:.1f} s on the CPU")
+    if not (torch.all(torch.isfinite(g.samples)) and g.samples.shape
+            == (200, 3)):
+        raise AssertionError("HMC on the card: non-finite or misshapen")
+    _hmc_compare("with warmup", g, c)
+    # without warmup the step size is fixed and the chains stay together
+    g0, _ = _hmc_run("cuda", n_warmup=0, n_samples=HMC_STRICT_DRAWS)
+    c0, _ = _hmc_run("cpu", n_warmup=0, n_samples=HMC_STRICT_DRAWS)
+    if _hmc_compare(f"{HMC_STRICT_DRAWS} draws without warmup", g0,
+                    c0).size:
+        raise AssertionError("HMC without warmup parts between the card "
+                             "and the CPU")
+
+    f, args = entry()
+    out = f(*args)
+    if not all(bool(torch.all(torch.isfinite(o))) for o in out):
+        raise AssertionError("entry() forward is not finite")
+    fg, ag = _flagship(torch.float64, "cuda")
+    fc, ac = _flagship(torch.float64, "cpu")
+    worst = max(_rel_err(a, b) for a, b in zip(fg(*ag), fc(*ac)))
+    if not worst <= F64_RTOL:
+        raise AssertionError(f"entry forward f64 card vs CPU: {worst:.3e}")
+    log(f"[21] entry() forward on the card: log-posterior "
+        f"{float(out[0]):.6g}, mean {tuple(out[1].shape)}, var "
+        f"{tuple(out[2].shape)}, finite; f64 card vs CPU within {worst:.2e}")
+    return launches
+
+
 def _record(name, source, replaces, launches, err, timed):
     k, p, lib, (bound_ms, bound_by) = timed
     return {"name": name, "route": "cuda", "source": source,
@@ -3976,44 +4471,87 @@ def _k2_record(launches, err, times):
     return rec
 
 
+def _k2_lanes_record(launches, err, times):
+    """K2's lanes launch at the sweep's shape in f64 (the sweep's type),
+    with K2's two bounds: `bound_ms`, the roofline over all lanes' work,
+    and `serial_floor_ms`, one lane's key chain (the lanes run side by
+    side), which bounds; `singles_ms` the L single launches' device time
+    it replaces; f32 beside it."""
+    k, p, lib, (floor, _) = times[("chunk_draws_lanes", torch.float64)]
+    roof = _k2_bound(120 * K2_LANES, 1, 3, 8)
+    rec = _record("chunk_draws_lanes",
+                  "ccgp_tpu_torch/csrc/threefry_split_chain.cu",
+                  "ccgp_tpu/ops/pallas_rng.py:122", launches, err,
+                  (k, p, lib, roof))
+    rec.update(serial_floor_ms=floor,
+               bound="serial_floor" if floor > roof[0] else "roofline",
+               singles_ms=times[("chunk_draws_lanes singles",
+                                 torch.float64)][0],
+               ms_f32=times[("chunk_draws_lanes", torch.float32)][0])
+    return rec
+
+
+def _timed(tag, fn, *args):
+    """fn(*args), logging its seconds under the phase's tag."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"{tag} phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
+    import shutil
+    import tempfile
+
     name, smi = phase_device()
     phase_build()
-    rng_err = phase_rng()
-    rounds_err = phase_rounds()
-    lanes_err = phase_lanes()
-    k5_err, k6_err, k7_err = phase_smallk()
-    k8_err, k9_err = phase_k8_k9()
+    sweep_tmp = tempfile.mkdtemp(prefix="ccgp_sweep_")
+    try:
+        return _main(name, smi, sweep_tmp)
+    finally:
+        shutil.rmtree(sweep_tmp, ignore_errors=True)
+
+
+def _main(name, smi, sweep_tmp) -> int:
+    sweep_root = standin_data_root(sweep_tmp)
+    # the sweep's f32 CLI run (phase 20) beside the bit-equality phases,
+    # whose checks do not depend on time; collected before phase 5 times
+    cli = _sweep_cli_start(sweep_root)
+    try:
+        rng_err = _timed("[3]", phase_rng)
+        rounds_err = _timed("[4]", phase_rounds)
+        lanes_err = _timed("[7]", phase_lanes)
+        k5_err, k6_err, k7_err = _timed("[11]", phase_smallk)
+        k8_err, k9_err = phase_k8_k9()
+    finally:
+        _sweep_cli_end(cli)
     paths = {}
-    paths["full-Bayes"], fit, pred, bench_ms = phase_main_path()
-    paths["MAP"], _, _ = phase_map()
-    paths["EB"], _, _ = phase_eb()
-    paths["lazy predict"] = phase_lazy(fit, pred)
-    paths["K8/K9 entry points"] = phase_k8_k9_paths()
+    paths["full-Bayes"], fit, pred, bench_ms = _timed("[5]", phase_main_path)
+    paths["MAP"], _, _ = _timed("[8]", phase_map)
+    paths["EB"], _, _ = _timed("[9]", phase_eb)
+    paths["lazy predict"] = _timed("[10]", phase_lazy, fit, pred)
+    paths["K8/K9 entry points"] = _timed("[15]", phase_k8_k9_paths)
     # the kernel timings before the 1-D, one-round and study paths: after
     # their hundreds of thousands of small launches the profiler kept no
     # record of most timing loops
-    times = phase_timing(fit)
-    paths.update(phase_1d())
-    paths.update(phase_one_round())
+    times = _timed("[6]", phase_timing, fit)
+    paths.update(_timed("[12]", phase_1d))
+    paths.update(_timed("[13]", phase_one_round))
     t0 = time.perf_counter()
     paths["study sim_2d_aniso"], _, _ = phase_study()
     phase_baselines_1d()
     log(f"[16] phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    paths["whiten"], _ = phase_whiten(bench_ms)
-    log(f"[17] phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    paths["ME design"], _, _ = phase_me_design()
-    log(f"[18] phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    case_paths, _ = phase_case_studies()
+    paths["whiten"], _ = _timed("[17]", phase_whiten, bench_ms)
+    paths["ME design"], _, _ = _timed("[18]", phase_me_design)
+    case_paths, _ = _timed("[19]", phase_case_studies)
     paths.update(case_paths)
-    log(f"[19] phase {time.perf_counter() - t0:.1f} s")
+    paths["sweep"], k2l_err = _timed("[20]", phase_sweep, sweep_root)
+    paths["parallel surface"] = _timed("[21]", phase_parallel_surface)
     launches = {k: sum(c[k] for c in paths.values()) for k in _counted()}
     log(f"[launches] per path: {paths}")
     kernels = [
         _k2_record(launches["chunk_draws"], rng_err, times),
+        _k2_lanes_record(launches["chunk_draws_lanes"], k2l_err, times),
         _record("fused_mix_mh_rounds", "ccgp_tpu_torch/csrc/mh_rounds.cu",
                 "ccgp_tpu/ops/pallas_chol_smallk.py:1357",
                 launches["fused_mix_mh_rounds"], rounds_err,

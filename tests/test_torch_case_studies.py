@@ -338,13 +338,6 @@ def test_cli_ground_vibrations_prints_jax_lines(gv_root, at_root,
     compare(runs["jax"], runs["port"])
 
 
-def test_cli_sim_2d_sweep_is_not_ported(capsys):
-    assert tcli.main(["sim_2d_sweep", "--cpu"]) == 2
-    assert "ROADMAP.md" in capsys.readouterr().err
-    with pytest.raises(SystemExit):
-        tcli.main(["sim_2d_sweep", "--designs", "3"])
-
-
 def test_cli_needs_cuda_unless_cpu_is_asked_for(gv_root, at_root,
                                                 monkeypatch):
     at_root(gv_root)

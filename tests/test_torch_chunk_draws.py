@@ -220,3 +220,136 @@ def test_drivers_draw_only_through_chunk_draws(chain_problem, monkeypatch,
         assert getattr(a, f) == getattr(b, f), f
     for f in ("samples", "betas", "logposts"):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+# ---------------------------------------------------------------------------
+# fold_in and the lanes launch's plain version
+# ---------------------------------------------------------------------------
+
+FOLD_DATA = [0, 1, 7, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1]
+
+
+@pytest.mark.parametrize("data", FOLD_DATA)
+@pytest.mark.parametrize("seed", SEEDS + [2 ** 40 + 5])
+def test_fold_in_matches_jax_bits(seed, data):
+    got = rng.fold_in(rng.PRNGKey(seed, device="cpu"), data)
+    ref = np.asarray(jax.random.fold_in(jax.random.PRNGKey(seed), data))
+    np.testing.assert_array_equal(got.numpy(), ref.astype(np.int64))
+
+
+def test_fold_in_over_a_batch_of_keys_and_refusals():
+    keys = rng.split(rng.PRNGKey(9, device="cpu"), 5)
+    jkeys = jax.random.split(jax.random.PRNGKey(9), 5)
+    got = rng.fold_in(keys, 7)
+    ref = np.asarray(jax.vmap(lambda k: jax.random.fold_in(k, 7))(jkeys))
+    np.testing.assert_array_equal(got.numpy(), ref.astype(np.int64))
+    for bad in (-1, 2 ** 32):
+        with pytest.raises(ValueError):
+            rng.fold_in(keys[0], bad)
+
+
+def _single_lanes(keys, rr, K, dim, dtype):
+    outs = [rng.chunk_draws_plain(k, rr, K, dim, dtype) for k in keys]
+    return tuple(torch.stack([o[i] for o in outs]) for i in range(3))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rr,K,dim", [(1, 1, 3), (7, 1, 3), (120, 1, 3),
+                                      (7, 4, 4), (20, 16, 1)])
+@pytest.mark.parametrize("lanes", [1, 5])
+def test_chunk_draws_lanes_plain_is_l_single_calls(lanes, rr, K, dim, dtype):
+    keys = rng.split(rng.PRNGKey(123, device="cpu"), lanes)
+    got = rng.chunk_draws_lanes_plain(keys, rr, K, dim, dtype)
+    ref = _single_lanes(keys, rr, K, dim, dtype)
+    assert got[1].shape == (lanes, rr, K, dim) and got[2].shape == (lanes,
+                                                                    rr, K)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+
+
+def test_chunk_draws_lanes_at_the_sweeps_shape():
+    """100 lanes, 120 rounds, K = 1, dim = 3: the sweep's launch."""
+    keys = rng.split(rng.PRNGKey(0, device="cpu"), 100)
+    for dtype in (torch.float32, torch.float64):
+        got = rng.chunk_draws_lanes(keys, 120, 1, 3, dtype)
+        for g, r in zip(got, _single_lanes(keys, 120, 1, 3, dtype)):
+            assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_chunk_draws_lanes_matches_jax_vmap(dtype):
+    """Against `jax.vmap` of the JAX chunk body over the lanes' keys."""
+    rr, K, dim, lanes = 7, 1, 3, 4
+    keys = rng.split(rng.PRNGKey(17, device="cpu"), lanes)
+    jkeys = jax.random.split(jax.random.PRNGKey(17), lanes)
+    key, eps, log_u = rng.chunk_draws_lanes(keys, rr, K, dim,
+                                            getattr(torch, dtype))
+    jkey, jeps, jlog_u = jax.vmap(_jax_chunk(rr, K, dim, dtype))(jkeys)
+    np.testing.assert_array_equal(key.numpy(),
+                                  np.asarray(jkey).astype(np.int64))
+    if dtype == "float64":
+        np.testing.assert_allclose(eps.numpy(), np.asarray(jeps), rtol=0,
+                                   atol=1e-12)
+        np.testing.assert_allclose(log_u.numpy(), np.asarray(jlog_u),
+                                   rtol=0, atol=1e-12)
+    else:
+        for i in range(lanes):
+            _normals_f32(eps[i], np.asarray(jeps[i]), keys[i], rr, K, dim)
+        np.testing.assert_allclose(log_u.numpy(), np.asarray(jlog_u),
+                                   rtol=1e-6, atol=0)
+
+
+def test_chunk_draws_lanes_is_its_plain_version_on_the_cpu():
+    keys = rng.split(rng.PRNGKey(3, device="cpu"), 3)
+    before = rng.chunk_draws_lanes.launches
+    got = rng.chunk_draws_lanes(keys, 20, 1, 3, torch.float64)
+    assert rng.chunk_draws_lanes.launches == before
+    for g, r in zip(got, rng.chunk_draws_lanes_plain(keys, 20, 1, 3,
+                                                     torch.float64)):
+        assert torch.equal(g, r)
+
+
+def test_chunk_draws_lanes_rejects_bad_inputs():
+    keys = rng.split(rng.PRNGKey(0, device="cpu"), 2)
+    for rr, K, dim in ((0, 1, 3), (3, 0, 3), (3, 1, 0)):
+        with pytest.raises(ValueError):
+            rng.chunk_draws_lanes(keys, rr, K, dim, torch.float64)
+    with pytest.raises(TypeError):
+        rng.chunk_draws_lanes(keys, 3, 1, 3, torch.float16)
+    for bad in (keys[0], keys[:0], keys.to(torch.int32)):
+        with pytest.raises(ValueError):
+            rng.chunk_draws_lanes(bad, 3, 1, 3)
+    with pytest.raises(ValueError):
+        rng.chunk_draws_lanes(keys.to("meta"), 3, 1, 3)
+
+
+@pytest.mark.parametrize("draw_rounds", [7, 120])
+def test_lanes_driver_draws_only_through_chunk_draws_lanes(
+        chain_problem, monkeypatch, draw_rounds):
+    """`metropolis_lanes` takes its stream from `chunk_draws_lanes` alone,
+    LANES_DRAW_ROUNDS rounds per call, and its chains do not depend on
+    that size: the same chains for 7 and 120."""
+    p = chain_problem
+    lp, fit = p["lp"], p["fit"]
+    lanes = 3
+    fits = type(fit)(*(torch.stack([f] * lanes) for f in fit))
+    keys = rng.split(rng.PRNGKey(5, device="cpu"), lanes)
+    calls = []
+
+    def counted(keys, rr, K, dim, dtype):
+        calls.append((keys.shape[0], rr, K, dim))
+        return rng.chunk_draws_lanes(keys, rr, K, dim, dtype)
+
+    monkeypatch.setattr(tmetro_mod, "rng",
+                        SimpleNamespace(chunk_draws_lanes=counted))
+    monkeypatch.setattr(tmetro_mod, "LANES_DRAW_ROUNDS", draw_rounds)
+    res = tmetro_mod.metropolis_lanes(lp, fits.mode, keys, n_max=120,
+                                      samp_size=40, laplace_fits=fits)
+    monkeypatch.undo()
+    assert {c[1:] for c in calls} == {(draw_rounds, 1, 3)}
+    assert {c[0] for c in calls} == {lanes}
+    assert len(calls) == -(-int(res.n_rounds.max()) // draw_rounds)
+    ref = tmetro_mod.metropolis_lanes(lp, fits.mode, keys, n_max=120,
+                                      samp_size=40, laplace_fits=fits)
+    np.testing.assert_array_equal(res.n_proposals, ref.n_proposals)
+    assert torch.equal(res.samples, ref.samples)

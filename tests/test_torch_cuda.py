@@ -22,7 +22,12 @@ members, as phase 14 holds them. Two paths without a kernel of their
 own are held against the CPU: a `whiten=True` fit (the same chain, K1
 never launched, draws and predictions within 1e-7) and the first-batch
 ME design search (the same starts, the design within 1e-6 and the score
-within 1e-9, BFGS's stopping point).
+within 1e-9, BFGS's stopping point). K2's lanes launch is held bit for
+bit against its plain version and L single launches; the lane-batched
+sampler and a small sweep against the CPU (equal chains, 1e-8: the
+card's erfinv parts from the CPU's by ulps), HMC over a short run (1e-8),
+the dry run on the card four times over (1e-4, JAX's guard) and the
+flagship forward in f64 (1e-10).
 """
 import ctypes
 
@@ -871,3 +876,140 @@ def test_lanes_bit_equal_at_heat_eb_shape(cuda, case_data, row):
         torch.cuda.synchronize()
         assert kern.launches == before + 1
         _bit_equal(got, plain(covs, y))
+
+
+# ---------------------------------------------------------------------------
+# the sweep and the parallel surface: K2's lanes launch, the lane driver,
+# HMC, the dry run and entry()
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lanes,rr,kk,dim", [(1, 7, 1, 3), (3, 120, 1, 3),
+                                             (100, 120, 1, 3), (5, 129, 4, 4),
+                                             (300, 20, 16, 9)])
+def test_chunk_draws_lanes_kernel_bit_equal(cuda, lanes, rr, kk, dim, dtype):
+    """One launch for all lanes, bit-equal to the plain version on the
+    card and to L single `chunk_draws` launches (the same body, the same
+    thread order per lane)."""
+    keys = rng.split(rng.PRNGKey(77, device=cuda), lanes)
+    before = rng.chunk_draws_lanes.launches
+    got = rng.chunk_draws_lanes(keys, rr, kk, dim, dtype)
+    torch.cuda.synchronize()
+    assert rng.chunk_draws_lanes.launches == before + 1
+    ref = rng.chunk_draws_lanes_plain(keys, rr, kk, dim, dtype)
+    single = [rng.chunk_draws(keys[i], rr, kk, dim, dtype)
+              for i in range(lanes)]
+    assert torch.equal(got[0], ref[0])
+    for i in (1, 2):
+        assert torch.equal(_bits(got[i]), _bits(ref[i]))
+        assert torch.equal(_bits(got[i]),
+                           _bits(torch.stack([s[i] for s in single])))
+
+
+def _lanes_case(device):
+    from ccgp_tpu_torch.models.likelihood import make_logpost_lanes
+
+    g = np.random.default_rng(1)
+    xs = torch.tensor(g.uniform(size=(3, 14, 2)), device=device)
+    ys = torch.sin(5 * xs[..., 0]) + torch.cos(3 * xs[..., 1])
+    s2 = torch.tensor([0.5, 0.7, 1.1], dtype=torch.float64, device=device)
+    spec = MixtureSpec(kernels.sqexp_family(), kernels.sqexp_family(), dim=2)
+    lp = make_logpost_lanes(spec, xs, ys, s2,
+                            theta1_prior=InverseGamma(3, 2),
+                            theta2_prior=InverseGamma(5, 16), jitter=1e-5)
+    keys = rng.split(rng.PRNGKey(0, device=device), 3)
+    starts = torch.tensor([[1.0, 1.0, 0.0]] * 3, dtype=torch.float64,
+                          device=device)
+    return lp, starts, keys
+
+
+def test_metropolis_lanes_gpu_equals_cpu(cuda):
+    """The lane driver on the card against the CPU: the same chains
+    (equal counters, draws within 1e-8: the card's erfinv parts from the
+    CPU's by ulps), K2's lanes launch once per 120 rounds."""
+    from ccgp_tpu_torch.infer.metropolis import metropolis_lanes
+
+    before = rng.chunk_draws_lanes.launches
+    rg = metropolis_lanes(*_lanes_case(cuda), n_max=300, samp_size=100)
+    launched = rng.chunk_draws_lanes.launches - before
+    rc = metropolis_lanes(*_lanes_case("cpu"), n_max=300, samp_size=100)
+    assert launched == -(-int(rg.n_rounds.max()) // 120)
+    for f in ("n_recorded", "n_proposals", "n_accepted"):
+        np.testing.assert_array_equal(getattr(rg, f), getattr(rc, f))
+    assert _rel(rg.samples, rc.samples) <= 1e-8
+
+
+def test_sweep_gpu_equals_cpu(cuda, case_data):
+    """`sim_2d_sweep.run` at 3 designs, n_max 300, on the card and the
+    CPU (stand-in Train_Designs): equal chains, summaries within 1e-8, K2's
+    lanes launch and K4 launched."""
+    from ccgp_tpu_torch.experiments import sim_2d_sweep
+    from ccgp_tpu_torch.models.combined_gp import MCMCConfig
+
+    cfg = sim_2d_sweep.Config(n_designs=3, n_new_axis=5, mcmc=MCMCConfig(
+        start=(1.0, 1.0, 0.0), n_max=300, samp_size=100, net_samp_size=80))
+    out = {}
+    for dev in (cuda, "cpu"):
+        st = {}
+        k0, k4 = rng.chunk_draws_lanes.launches, \
+            chol_lanes.chol_factors_lanes.launches
+        res = sim_2d_sweep.run(cfg, key=rng.PRNGKey(0, device=dev),
+                               dtype=torch.float64, device=dev, stages=st)
+        out[str(dev)] = (res, st["chains"],
+                         rng.chunk_draws_lanes.launches - k0,
+                         chol_lanes.chol_factors_lanes.launches - k4)
+    (g, gc, g2, g4), (c, cc, c2, c4) = out["cuda"], out["cpu"]
+    assert g2 >= 1 and g4 == 3 and c2 == c4 == 0
+    np.testing.assert_array_equal(gc.n_proposals, cc.n_proposals)
+    np.testing.assert_array_equal(g.chain_ok, c.chain_ok)
+    for f in ("rmspe", "coverage", "quant"):
+        np.testing.assert_allclose(getattr(g, f), getattr(c, f), rtol=1e-8)
+
+
+def test_hmc_gpu_equals_cpu(cuda):
+    """HMC on the card against the CPU, f64, a GP posterior with its
+    Laplace covariance as mass, over a short run (10 warmup, 40 draws):
+    within 1e-8 (the chains part later, as across packages)."""
+    from ccgp_tpu_torch.infer.hmc import hmc
+    from ccgp_tpu_torch.infer.laplace import laplace
+    from ccgp_tpu_torch.models.likelihood import make_logpost
+
+    def run(device):
+        g = np.random.default_rng(0)
+        x = torch.tensor(g.uniform(size=(10, 2)), device=device)
+        y = torch.sin(5 * x[:, 0]) + torch.cos(3 * x[:, 1])
+        spec = MixtureSpec(kernels.sqexp_family(), kernels.sqexp_family(),
+                           dim=2)
+        lp = make_logpost(spec, x, y, 0.5, theta1_prior=InverseGamma(3, 2),
+                          theta2_prior=InverseGamma(5, 16), jitter=1e-6)
+        start = torch.tensor([0.5, 1.0, 0.0], dtype=torch.float64,
+                             device=device)
+        fit = laplace(lambda z: lp(z).val, start)
+        return hmc(lambda z: lp(z).val, fit.mode.detach(),
+                   rng.PRNGKey(3, device=device), n_samples=40, n_warmup=10,
+                   mass_cov=fit.cov)
+
+    g, c = run(cuda), run("cpu")
+    assert g.samples.device.type == "cuda"
+    assert _rel(g.samples, c.samples) <= 1e-8
+    assert int(g.n_divergent) == int(c.n_divergent)
+
+
+def test_dryrun_multichip_on_a_repeated_card(cuda):
+    from ccgp_tpu_torch.graft_entry import dryrun_multichip
+
+    par = dryrun_multichip(4)
+    assert max(par.values()) < 1e-4
+
+
+def test_entry_forward_gpu_equals_cpu(cuda):
+    from ccgp_tpu_torch.graft_entry import _flagship, entry
+
+    fg, ag = entry()
+    assert ag[0].device.type == "cuda"
+    f64g, a64g = _flagship(torch.float64, cuda)
+    f64c, a64c = _flagship(torch.float64, "cpu")
+    for g, c in zip(f64g(*a64g), f64c(*a64c)):
+        assert _rel(g, c) <= 1e-10
+    for g in fg(*ag):
+        assert torch.all(torch.isfinite(g))

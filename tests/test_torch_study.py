@@ -75,7 +75,7 @@ def test_cli_prints_the_three_lines(capsys):
     assert out[2].startswith("calibration quantile:")
 
 
-@pytest.mark.parametrize("name", ["sim_2d_sweep", "no_such_study"])
+@pytest.mark.parametrize("name", ["no_such_study"])
 def test_cli_refuses_what_is_not_ported(name, capsys):
     assert main([name, "--cpu"]) != 0
     assert "ROADMAP" in capsys.readouterr().err
