@@ -27,7 +27,10 @@
 // the block's threads make them, an item per thread at a time. A chunk's
 // keys wait in shared memory, SEG rounds at a time (one segment at the
 // bench's rr = 120), so a chunk of any length runs in one block: the
-// chain of a segment, a barrier, its draws, a barrier.
+// chain of a segment, a barrier, its draws, a barrier. A segment's draws
+// are indexed in int while SEG K dim < 2^31 (every path's shape) and in 64
+// bits beyond, where a round's counter may also reach its high word
+// (JAX's threefry counter is a uint64 split into two uint32 words).
 //
 // Arithmetic of the draws, bit-equal to `chunk_draws_plain` on the card:
 // every add and multiply explicitly rounded and in the plain version's
@@ -123,11 +126,18 @@ __device__ __forceinline__ double lo_of(double) {
   return -0x1.fffffffffffffp-1;
 }
 
+// The high counter word of a draw's index: 0 below 2^32
+__device__ __forceinline__ uint32_t hi_word(int) { return 0u; }
+__device__ __forceinline__ uint32_t hi_word(long long c) {
+  return (uint32_t)((unsigned long long)c >> 32);
+}
+
 // One chain's rr rounds of keys and draws by the calling block's THREADS
-// threads (`keys` the block's shared segment buffer). The single launch and
-// the lanes launch both run this body, so a lane computes what a single
-// launch on its key computes, in the same thread order.
-template <typename T, int THREADS>
+// threads (`keys` the block's shared segment buffer), the draws of a
+// segment indexed in I (int or long long). The single launch and the lanes
+// launch both run this body, so a lane computes what a single launch on
+// its key computes, in the same thread order.
+template <typename T, int THREADS, typename I>
 __device__ __forceinline__ void chunk_draws_body(
     const int64_t* __restrict__ key, int64_t* __restrict__ new_key,
     T* __restrict__ eps, T* __restrict__ log_u, int rr, int K, int dim,
@@ -137,7 +147,7 @@ __device__ __forceinline__ void chunk_draws_body(
   const T lo = lo_of(T(0));
   const T span = A::sub(T(1), lo);           // hi - lo, rounded to T
   const T sqrt2 = T(1.4142135623730951);     // sqrt(2) rounded to T
-  const int per = K * dim;
+  const I per = (I)K * dim;
   uint32_t k0 = 0u, k1 = 0u;
   if (tid == 0) {
     k0 = (uint32_t)key[0];
@@ -162,17 +172,17 @@ __device__ __forceinline__ void chunk_draws_body(
       }
     }
     __syncthreads();
-    for (int e = tid; e < m * per; e += THREADS) {   // < 2^31
-      const int r = e / per, c = e - r * per;
+    for (I e = tid; e < m * per; e += THREADS) {
+      const I r = e / per, c = e - r * per;
       const uint4 kr = keys[r];
-      uint32_t x0 = 0u, x1 = (uint32_t)c;
+      uint32_t x0 = hi_word(c), x1 = (uint32_t)c;
       threefry2x32(kr.x, kr.y, x0, x1);
       T u = A::add(A::mul(unit_float(x0, x1, T(0)), span), lo);
       u = u < lo ? lo : u;   // torch.maximum(lo, u)
       eps[(size_t)s0 * per + e] = A::mul(sqrt2, erfinv_(u));
     }
-    for (int e = tid; e < m * K; e += THREADS) {
-      const int r = e / K, c = e - r * K;
+    for (I e = tid; e < (I)m * K; e += THREADS) {
+      const I r = e / K, c = e - r * K;
       const uint4 kr = keys[r];
       uint32_t x0 = 0u, x1 = (uint32_t)c;
       threefry2x32(kr.z, kr.w, x0, x1);
@@ -188,14 +198,14 @@ __device__ __forceinline__ void chunk_draws_body(
   }
 }
 
-template <typename T>
+template <typename T, typename I>
 __global__ void __launch_bounds__(DRAW_THREADS)
 chunk_draws_kernel(const int64_t* __restrict__ key, int64_t* __restrict__ new_key,
                    T* __restrict__ eps, T* __restrict__ log_u, int rr, int K,
                    int dim) {
   __shared__ uint4 keys[SEG];   // round r of the segment: (k1, k2)
-  chunk_draws_body<T, DRAW_THREADS>(key, new_key, eps, log_u, rr, K, dim,
-                                    keys);
+  chunk_draws_body<T, DRAW_THREADS, I>(key, new_key, eps, log_u, rr, K, dim,
+                                       keys);
 }
 
 // The lanes launch: a block per lane, each walking its own key chain (its
@@ -205,24 +215,31 @@ chunk_draws_kernel(const int64_t* __restrict__ key, int64_t* __restrict__ new_ke
 // (rr, K).
 constexpr int LANE_THREADS = 256;
 
-template <typename T>
+template <typename T, typename I>
 __global__ void __launch_bounds__(LANE_THREADS)
 chunk_draws_lanes_kernel(const int64_t* __restrict__ keys_in,
                          int64_t* __restrict__ new_keys, T* __restrict__ eps,
                          T* __restrict__ log_u, int rr, int K, int dim) {
   __shared__ uint4 keys[SEG];
   const size_t lane = blockIdx.x;
-  chunk_draws_body<T, LANE_THREADS>(
+  chunk_draws_body<T, LANE_THREADS, I>(
       keys_in + 2 * lane, new_keys + 2 * lane,
       eps + lane * (size_t)rr * K * dim, log_u + lane * (size_t)rr * K, rr,
       K, dim, keys);
+}
+
+// int indices while a segment's draws fit in one
+bool int_indexed(int K, int dim) {
+  return (long long)SEG * K * dim < (1LL << 31);
 }
 
 template <typename T>
 int launch_draws(const void* key, void* new_key, void* eps, void* log_u,
                  int rr, int K, int dim, void* stream) {
   if (rr < 1 || K < 1 || dim < 1) return (int)cudaErrorInvalidValue;
-  chunk_draws_kernel<T><<<1, DRAW_THREADS, 0, (cudaStream_t)stream>>>(
+  auto kernel = int_indexed(K, dim) ? chunk_draws_kernel<T, int>
+                                    : chunk_draws_kernel<T, long long>;
+  kernel<<<1, DRAW_THREADS, 0, (cudaStream_t)stream>>>(
       (const int64_t*)key, (int64_t*)new_key, (T*)eps, (T*)log_u, rr, K, dim);
   return (int)cudaGetLastError();
 }
@@ -233,8 +250,9 @@ int launch_draws_lanes(const void* keys, void* new_keys, void* eps,
                        void* stream) {
   if (lanes < 1 || rr < 1 || K < 1 || dim < 1)
     return (int)cudaErrorInvalidValue;
-  chunk_draws_lanes_kernel<T><<<lanes, LANE_THREADS, 0,
-                                (cudaStream_t)stream>>>(
+  auto kernel = int_indexed(K, dim) ? chunk_draws_lanes_kernel<T, int>
+                                    : chunk_draws_lanes_kernel<T, long long>;
+  kernel<<<lanes, LANE_THREADS, 0, (cudaStream_t)stream>>>(
       (const int64_t*)keys, (int64_t*)new_keys, (T*)eps, (T*)log_u, rr, K,
       dim);
   return (int)cudaGetLastError();

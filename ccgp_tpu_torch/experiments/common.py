@@ -60,22 +60,31 @@ def run_study(
     mle_family: Optional[KernelFamily] = None,
     mle_ard: bool = False,
     run_cgp: bool = True,
+    run_single: bool = True,
+    cgp_candidates: int = 505,
     jitter: float = 0.0,
+    on_unconverged: str = "warn",     # 'warn' | 'raise' | 'ignore'
     single_variant: str = "reference",  # 'reference' (1-D) | 'mlegp' (>= 2-D)
     single_fit=None,                  # a precomputed mlegp / kriging fit
     device="cuda",
 ) -> StudyResult:
     """The study on `device` (the GPU unless device="cpu"): x, y, x_new and
-    the key are moved there. The combined GP and the single GP are fitted
-    with `jitter`, the composite GP (505 candidates) unless run_cgp=False,
-    and an unhealthy chain warns.
+    the key are moved there. The combined GP and the single GP (unless
+    run_single=False) are fitted with `jitter`, the composite GP with
+    `cgp_candidates` LHD candidates unless run_cgp=False. An unhealthy
+    chain warns (RuntimeWarning), raises (RuntimeError) or passes, as
+    on_unconverged is "warn", "raise" or "ignore"; any other value raises
+    ValueError before anything runs.
 
     With single_variant="mlegp" one `mlegp_fit` gives both the sigma^2
     plug-in and the single-GP baseline, as the >= 2-D scripts take both
     from one mlegp fit; `single_fit` (a `KrigingMLE`) replaces that fit,
-    and sigma2 replaces its plug-in. Else the combined GP takes sigma2, or
-    its own plug-in when it is None, and the baseline is `single_fit` or
+    and sigma2 replaces its plug-in: the fit is skipped when sigma2 is
+    given and run_single=False. Else the combined GP takes sigma2, or its
+    own plug-in when it is None, and the baseline is `single_fit` or
     `kriging_mle`'s (ARD with mle_ard=True)."""
+    if on_unconverged not in ("warn", "raise", "ignore"):
+        raise ValueError(on_unconverged)
     dev = resolve(device)
     x = torch.as_tensor(x, device=dev)
     y = torch.as_tensor(y, dtype=x.dtype, device=dev)
@@ -85,7 +94,7 @@ def run_study(
 
     mlegp = single_variant == "mlegp"
     kfit = move(single_fit, dev)
-    if mlegp and kfit is None:
+    if mlegp and kfit is None and (sigma2 is None or run_single):
         kfit = mlegp_fit(fam, x, y, k_single, jitter=jitter)
     if mlegp and sigma2 is None:
         sigma2 = kfit.sigma2
@@ -94,15 +103,18 @@ def run_study(
                           theta2_prior=theta2_prior, sigma2=sigma2,
                           mle_family=mle_family, mle_ard=mle_ard,
                           jitter=jitter, device=dev)
-    if not fit.chain_ok:
+    if on_unconverged != "ignore" and not fit.chain_ok:
         mc = fit.mcmc
-        warnings.warn(
-            f"MCMC chain unhealthy: converged={mc.converged} (Geweke "
-            f"p={mc.pvalue:.3f} < alpha={mcmc.alpha_geweke}), "
-            f"n_recorded={mc.n_recorded} vs samp_size={mcmc.samp_size} "
-            f"after {mc.n_proposals} proposals; the retained window "
-            "duplicates draws if under-filled. Raise n_max/max_proposals.",
-            RuntimeWarning, stacklevel=2)
+        msg = (f"MCMC chain unhealthy: converged={bool(mc.converged)} "
+               f"(Geweke p={float(mc.pvalue):.3f} < alpha="
+               f"{mcmc.alpha_geweke}), n_recorded={int(mc.n_recorded)} vs "
+               f"samp_size={mcmc.samp_size} after {int(mc.n_proposals)} "
+               "proposals; the retained window duplicates draws if "
+               "under-filled. Raise n_max/max_proposals or pass "
+               "on_unconverged='ignore'.")
+        if on_unconverged == "raise":
+            raise RuntimeError(msg)
+        warnings.warn(msg, RuntimeWarning, stacklevel=2)
     quant_ref = (torch.as_tensor(np.asarray(y_true), dtype=x.dtype,
                                  device=dev) if quant_vs_truth else None)
     pred = predict_combined_gp(spec, fit, x, x_new, k_pred, alpha=alpha,
@@ -110,14 +122,17 @@ def run_study(
     predictions = {"combined": ModelPrediction(
         _np(pred.mean), _np(pred.lower), _np(pred.upper), _np(pred.quant))}
 
-    if kfit is None:
-        kfit = kriging_mle(fam, x, y, k_single, ard=mle_ard, jitter=jitter)
-    kpred = kriging_predict(fam, x, y, kfit, x_new, alpha=alpha,
-                            variant="mlegp" if mlegp else "reference")
-    predictions["single"] = ModelPrediction(
-        _np(kpred.mean), _np(kpred.lower), _np(kpred.upper))
+    if run_single:
+        if kfit is None:
+            kfit = kriging_mle(fam, x, y, k_single, ard=mle_ard,
+                               jitter=jitter)
+        kpred = kriging_predict(fam, x, y, kfit, x_new, alpha=alpha,
+                                variant="mlegp" if mlegp else "reference")
+        predictions["single"] = ModelPrediction(
+            _np(kpred.mean), _np(kpred.lower), _np(kpred.upper))
     if run_cgp:
-        cpred = cgp_predict(cgp_fit(x, y, k_cgp), x_new)
+        cpred = cgp_predict(cgp_fit(x, y, k_cgp, n_candidates=cgp_candidates),
+                            x_new)
         predictions["cgp"] = ModelPrediction(
             _np(cpred.mean), _np(cpred.lower), _np(cpred.upper))
 

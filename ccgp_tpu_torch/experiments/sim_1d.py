@@ -30,11 +30,17 @@ class Config:
                                   samp_size=5000, net_samp_size=2500)
 
 
-def data_1d(cfg, key, dtype, dev):
-    """(x, y, x_new, y_true, k_study) of a 1-D study: the design is
-    random_lhs(split(key)[0])."""
+def data_1d(cfg, key, dtype, dev, design=None):
+    """(x, y, x_new, y_true, k_study) of a 1-D study: the design given
+    (cfg.n_train values, reshaped to (n_train, 1)) or else
+    random_lhs(split(key)[0]). The key is split either way, so the study
+    key does not depend on whether a design is given."""
     k_d, k_s = rng.split(key.to(dev))
-    x = random_lhs(k_d, cfg.n_train, 1, dtype)
+    if design is None:
+        x = random_lhs(k_d, cfg.n_train, 1, dtype)
+    else:
+        x = torch.as_tensor(design, dtype=dtype, device=dev).reshape(
+            cfg.n_train, 1)
     y = test_function_1d(x[:, 0], cfg.func)
     x_new = torch.as_tensor(np.linspace(0, 1, cfg.n_new)[:, None],
                             dtype=dtype, device=dev)
@@ -42,11 +48,11 @@ def data_1d(cfg, key, dtype, dev):
     return x, y, x_new, y_true, k_s
 
 
-def run(cfg: Config = Config(), key=None, dtype=torch.float64,
+def run(cfg: Config = Config(), key=None, design=None, dtype=torch.float64,
         device="cuda") -> StudyResult:
     dev = resolve(device)
     key = rng.PRNGKey(0, device=dev) if key is None else key
-    x, y, x_new, y_true, k_s = data_1d(cfg, key, dtype, dev)
+    x, y, x_new, y_true, k_s = data_1d(cfg, key, dtype, dev, design)
     fam = kernels.matern_family(cfg.nu)
     return run_study(MixtureSpec(fam, fam, dim=1), x, y, x_new, y_true, k_s,
                      cfg.mcmc, theta1_prior=InverseGamma(3, 2),

@@ -25,15 +25,19 @@ class Config:
     nu: float = 5.0
     n_new: int = 50
     alpha: float = 0.05
+    # JAX's Config has this flag and its run never reads it: the
+    # reference's unnormalized cross-correlation (`:479`) is reachable
+    # only through predictive_moments(normalized_cross=False)
+    compat_unnormalized_cross: bool = False
     mcmc: MCMCConfig = MCMCConfig(start=(0.0, 1.5, 0.0), n_max=10000,
                                   samp_size=5000, net_samp_size=2500)
 
 
-def run(cfg: Config = Config(), key=None, dtype=torch.float64,
+def run(cfg: Config = Config(), key=None, design=None, dtype=torch.float64,
         device="cuda") -> StudyResult:
     dev = resolve(device)
     key = rng.PRNGKey(0, device=dev) if key is None else key
-    x, y, x_new, y_true, k_s = data_1d(cfg, key, dtype, dev)
+    x, y, x_new, y_true, k_s = data_1d(cfg, key, dtype, dev, design)
     spec = MixtureSpec(kernels.matern_family(cfg.nu),
                        kernels.spline_family(), dim=1)
     return run_study(spec, x, y, x_new, y_true, k_s, cfg.mcmc,

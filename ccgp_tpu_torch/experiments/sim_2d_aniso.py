@@ -29,11 +29,11 @@ class Config:
                                   samp_size=1000, net_samp_size=1000)
 
 
-def run(cfg: Config = Config(), key=None, dtype=torch.float64,
+def run(cfg: Config = Config(), key=None, design=None, dtype=torch.float64,
         device="cuda") -> StudyResult:
     dev = resolve(device)
     key = rng.PRNGKey(0, device=dev) if key is None else key
-    x, y, x_new, y_true, k_s = data_2d(cfg, key, dtype, dev)
+    x, y, x_new, y_true, k_s = data_2d(cfg, key, dtype, dev, design)
     spec = MixtureSpec(kernels.sqexp_family(), kernels.sqexp_family(),
                        dim=2, rough="tied", anisotropic=True)
     return run_study(spec, x, y, x_new, y_true, k_s, cfg.mcmc,

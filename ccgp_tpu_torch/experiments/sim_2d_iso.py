@@ -37,21 +37,25 @@ def lattice(n: int, dtype=torch.float64, device="cpu") -> torch.Tensor:
                            dtype=dtype, device=device)
 
 
-def data_2d(cfg, key, dtype, dev):
-    """(x, y, x_new, y_true, k_study) of a 2-D study: the design is
-    maximin_lhs(split(key)[0])."""
+def data_2d(cfg, key, dtype, dev, design=None):
+    """(x, y, x_new, y_true, k_study) of a 2-D study: the design given (n,
+    2) or else maximin_lhs(split(key)[0]). The key is split either way,
+    so the study key does not depend on whether a design is given."""
     k_d, k_s = rng.split(key.to(dev))
-    x = maximin_lhs(k_d, cfg.n_train, 2, dtype=dtype)
+    if design is None:
+        x = maximin_lhs(k_d, cfg.n_train, 2, dtype=dtype)
+    else:
+        x = torch.as_tensor(design, dtype=dtype, device=dev)
     x_new = lattice(cfg.n_new_axis, dtype, dev)
     y_true = test_function_2d(x_new, cfg.func).cpu().numpy()
     return x, test_function_2d(x, cfg.func), x_new, y_true, k_s
 
 
-def run(cfg: Config = Config(), key=None, dtype=torch.float64,
+def run(cfg: Config = Config(), key=None, design=None, dtype=torch.float64,
         device="cuda") -> StudyResult:
     dev = resolve(device)
     key = rng.PRNGKey(0, device=dev) if key is None else key
-    x, y, x_new, y_true, k_s = data_2d(cfg, key, dtype, dev)
+    x, y, x_new, y_true, k_s = data_2d(cfg, key, dtype, dev, design)
     spec = MixtureSpec(kernels.sqexp_family(), kernels.sqexp_family(), dim=2)
     return run_study(spec, x, y, x_new, y_true, k_s, cfg.mcmc,
                      theta1_prior=InverseGamma(3, 2),

@@ -179,7 +179,7 @@ def run(cfg: Config = Config(), key=None, dtype=torch.float32,
             r, c, q, ok = sweep(cfg, d, k, xd, yd)
             return r, c, q, ok
 
-        out = sharded_design_sweep(fit, designs, keys, mesh)
+        out = sharded_design_sweep(fit, designs, keys, mesh, batched=True)
     else:
         out = sweep(cfg, designs, keys, x_new, y_true, stages)
     rmspe, cover, quant, ok = (np.asarray(o) for o in out)

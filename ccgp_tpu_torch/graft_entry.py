@@ -146,7 +146,7 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     designs = tt(rng.uniform(size=(n_devices + 3, n, 2)))
     dkeys = torch.stack([trng.PRNGKey(i, device=dev0)
                          for i in range(n_devices + 3)])
-    vals = [sharded_design_sweep(fit, designs, dkeys, m)
+    vals = [sharded_design_sweep(fit, designs, dkeys, m, batched=True)
             for m in (mesh, mesh1)]
     parities["design_sweep"] = _rel_delta(*vals)
 

@@ -5,11 +5,18 @@ symmetrization and eigenvalue clipping to a condition number of 1e4.
 """
 from __future__ import annotations
 
+import threading
 from typing import Callable, NamedTuple
 
 import torch
 
 from ccgp_tpu_torch.infer.optim import minimize_bfgs
+
+# torch.func.hessian's forward mode enters PyTorch's dual levels, which are
+# process-wide: two threads in it at once (the shards of
+# `parallel.multi_chain_metropolis` on distinct devices) corrupt each
+# other's tangents. One Hessian at a time.
+_HESSIAN_LOCK = threading.Lock()
 
 
 class LaplaceFit(NamedTuple):
@@ -31,7 +38,8 @@ def laplace(logpost_val: Callable, start: torch.Tensor,
         mode = start.detach()
         with torch.no_grad():
             fmin = -logpost_val(mode)
-    hess = torch.func.hessian(logpost_val)(mode).detach()
+    with _HESSIAN_LOCK:
+        hess = torch.func.hessian(logpost_val)(mode).detach()
     prec = -hess
     prec = 0.5 * (prec + prec.T)
     if not bool(torch.all(torch.isfinite(prec))):

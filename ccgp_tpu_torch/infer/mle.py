@@ -126,14 +126,18 @@ MLEGP_MAXITER = 300
 
 
 def mlegp_fit(family: KernelFamily, x: torch.Tensor, y: torch.Tensor,
-              key: torch.Tensor, jitter: float = 1e-10) -> KrigingMLE:
+              key: torch.Tensor | None = None, jitter: float = 1e-10,
+              n_random: int = MLEGP_N_RANDOM, maxiter: int = MLEGP_MAXITER,
+              log_theta_low: float = MLEGP_LOG_THETA[0],
+              log_theta_high: float = MLEGP_LOG_THETA[1]) -> KrigingMLE:
     """ARD Gaussian-correlation GP fit, the framework's `mlegp::mlegp`
     baseline. The starts, in JAX's order (the multistart's argmin keeps the
     first of equal values, so the order matters): the isotropic optimum of
     `kriging_mle_grid` on every axis; then for each axis the kicks +2, -2,
-    +4, -4 of its log rate; then MLEGP_N_RANDOM Gaussian starts around the
-    first, scaled 0.5, 1, 2 in turn (`rng.normal(key)`); all clipped to the
-    box MLEGP_LOG_THETA and refined by box-constrained BFGS."""
+    +4, -4 of its log rate; then n_random Gaussian starts around the
+    first, scaled 0.5, 1, 2 in turn (`rng.normal(key)`, key PRNGKey(0)
+    when None); all clipped to the box [log_theta_low, log_theta_high]
+    and refined by box-constrained BFGS, maxiter iterations each."""
     n, d = x.shape[-2], x.shape[-1]
     dt, dev = x.dtype, x.device
     eye = torch.eye(n, dtype=dt, device=dev)
@@ -154,16 +158,18 @@ def mlegp_fit(family: KernelFamily, x: torch.Tensor, y: torch.Tensor,
             s = base.clone()
             s[j] = s[j] + kick
             starts.append(s)
-    noise = rng.normal(key.to(dev), (MLEGP_N_RANDOM, d), dt)
-    scales = torch.tensor([0.5, 1.0, 2.0] * (MLEGP_N_RANDOM // 3),
-                          dtype=dt, device=dev)[:, None]
-    starts.extend(base[None, :] + scales * noise)
-    lo, hi = MLEGP_LOG_THETA
+    if n_random:
+        key = rng.PRNGKey(0, device=dev) if key is None else key.to(dev)
+        noise = rng.normal(key, (n_random, d), dt)
+        scales = torch.tensor([0.5, 1.0, 2.0] * (n_random // 3 + 1),
+                              dtype=dt, device=dev)[:n_random, None]
+        starts.extend(base[None, :] + scales * noise)
+    lo, hi = log_theta_low, log_theta_high
     res = multistart_minimize(
         nll_of_logtheta, torch.clamp(torch.stack(starts), lo, hi),
         lower=torch.full((d,), lo, dtype=dt, device=dev),
         upper=torch.full((d,), hi, dtype=dt, device=dev),
-        maxiter=MLEGP_MAXITER)
+        maxiter=maxiter)
     theta = torch.exp(res.x)
     chol = linalg.jitter_cholesky(family.gram(x, theta), jitter)
     beta = gls_beta(chol, y)

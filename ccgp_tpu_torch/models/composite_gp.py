@@ -10,9 +10,10 @@ rough GP whose variance varies over space:
     objective(w) = log det Q + n log tau2(w),  w = (lambda, theta, kappa, bw)
 
 The fit: 505 midpoint-LHD candidates scored as ONE batch, the best
-`NUM_STARTS` (ties to the lower index, as `jax.lax.top_k`) refined by
-box-constrained BFGS (`infer.optim.multistart_minimize`), then the n
-leave-one-out refits as one batch (the jackknife RMSCV) and the predictor
+`num_starts` (ties to the lower index, as `jax.lax.top_k`) refined by
+box-constrained BFGS (`infer.optim.multistart_minimize`), then, unless
+jackknife=False, the n leave-one-out refits as one batch (the jackknife
+RMSCV; NaN without it) and the predictor
 with local-variance weighting and +/-1.96 sigma intervals. Every helper
 takes leading batch axes. A failed factorization is NaN
 (`linalg.jitter_cholesky`), and a non-finite objective scores 1e6.
@@ -144,24 +145,31 @@ def _standardize(x):
     return (x - lo) / scales, scales
 
 
-def _bounds(x_std, p):
-    """The hyperparameter box from the data scale (`:81-93`), at the
-    reference's defaults: lambda in [NUGGET_L, 1], theta in [THETA_L,
-    alpha_l], kappa in [alpha_l, kappa_u], bw in [0, 1], with alpha_l =
-    log(10^2) and kappa_u = log(10^6) times the mean inverse squared
-    distance of the standardized design."""
-    dt, dev = x_std.dtype, x_std.device
+def _bounds(x_std, p, nugget_l=NUGGET_L, theta_l=None, alpha_l=None,
+            kappa_u=None, dtype=None):
+    """The hyperparameter box from the data scale (`:81-93`): lambda in
+    [nugget_l, 1], theta in [theta_l, alpha_l], kappa in [alpha_l,
+    kappa_u], bw in [0, 1]. None takes the reference's default: theta_l
+    THETA_L, alpha_l log(10^2) and kappa_u log(10^6) times the mean inverse
+    squared distance of the standardized design. alpha_l and kappa_u may
+    be arrays, as in JAX (the box then has their lengths). dtype None is
+    x_std's."""
+    dtype = x_std.dtype if dtype is None else dtype
+    dev = x_std.device
     n = x_std.shape[0]
     iu = torch.triu_indices(n, n, 1, device=dev)
     mean_inv_d2 = torch.mean(1.0 / pairwise_sqdist(x_std)[iu[0], iu[1]])
-    alpha_l = math.log(10.0 ** 2) * mean_inv_d2
-    kappa_u = math.log(10.0 ** 6) * mean_inv_d2
-    t = lambda v: torch.tensor([v], dtype=dt, device=dev)  # noqa: E731
-    lower = torch.cat([t(NUGGET_L), torch.full((p,), THETA_L, dtype=dt,
-                                               device=dev),
-                       alpha_l.reshape(1), t(0.0)])
-    upper = torch.cat([t(1.0), torch.ones(p, dtype=dt, device=dev) * alpha_l,
-                       kappa_u.reshape(1), t(1.0)])
+    t = lambda v: torch.as_tensor(v, dtype=dtype, device=dev)  # noqa: E731
+    if theta_l is None:
+        theta_l = THETA_L
+    alpha_l = (math.log(10.0 ** 2) * mean_inv_d2 if alpha_l is None
+               else t(alpha_l))
+    if kappa_u is None:
+        kappa_u = math.log(10.0 ** 6) * mean_inv_d2
+    lower = torch.cat([t([nugget_l]), torch.broadcast_to(t(theta_l), (p,)),
+                       torch.atleast_1d(t(alpha_l)), t([0.0])])
+    upper = torch.cat([t([1.0]), torch.ones(p, dtype=dtype, device=dev)
+                       * alpha_l, torch.atleast_1d(t(kappa_u)), t([1.0])])
     return lower, upper
 
 
@@ -176,25 +184,29 @@ def _lhd(key, n, k, dtype):
 
 
 def cgp_fit(x: torch.Tensor, y: torch.Tensor, key: torch.Tensor,
-            n_candidates: int = 505) -> CGPFit:
+            nugget_l: float = NUGGET_L, num_starts: int = NUM_STARTS,
+            theta_l=None, alpha_l=None, kappa_u=None,
+            n_candidates: int = 505, jackknife: bool = True) -> CGPFit:
     """Fit the composite GP to x (n, p), y (n,) on their device; the key
-    draws the candidate LHD."""
+    draws the candidate LHD. The box is `_bounds`'s (None takes the
+    reference's defaults); jackknife=False skips the leave-one-out refits
+    and leaves rmscv NaN."""
     n, p = x.shape
     dt, dev = x.dtype, x.device
     y = y.to(dtype=dt, device=dev)
     x_std, scales = _standardize(x)
-    lower, upper = _bounds(x_std, p)
+    lower, upper = _bounds(x_std, p, nugget_l, theta_l, alpha_l, kappa_u, dt)
 
     def obj(w):
         return _objective(w, x_std, y)
 
-    # 1) the candidate sweep as one batch; the best NUM_STARTS, ties to the
+    # 1) the candidate sweep as one batch; the best num_starts, ties to the
     # lower index as jax.lax.top_k(-objective)
     cand = _lhd(key.to(dev), n_candidates, p + 3, dt) * (upper - lower) + lower
     with torch.no_grad():
         cand_obj = obj(cand)
     top = cand[torch.sort(-cand_obj, descending=True, stable=True)[1]
-               [:NUM_STARTS]]
+               [:num_starts]]
 
     # 2) bounded refinement of the top starts
     res = multistart_minimize(obj, top, lower=lower, upper=upper)
@@ -208,32 +220,39 @@ def cgp_fit(x: torch.Tensor, y: torch.Tensor, key: torch.Tensor,
         sig, sf, e, chol, beta, _ = _factor(x, y, theta, alpha, lam, bwv)
         temp = linalg.chol_solve(chol, y - beta)
         tau2 = _vdot(y - beta, temp) / n
-
-        # 4) the jackknife: the n leave-one-out refits as one batch
-        keep = torch.stack([torch.cat([torch.arange(j, device=dev),
-                                       torch.arange(j + 1, n, device=dev)])
-                            for j in range(n)])              # (n, n - 1)
-        xs, ys = x[keep], y[keep]
-        sigj, sfj, ej, cholj, betaj, _ = _factor(xs, ys, theta, alpha, lam,
-                                                 bwv)
-        tempj = linalg.chol_solve(cholj, ys - betaj[..., None])
-        dj = (xs - x[:, None, :]) ** 2                       # (n, n - 1, p)
-        gv = torch.exp(-torch.sum(theta * dj, dim=-1))
-        lv = torch.exp(-torch.sum(alpha * dj, dim=-1))
-        gbv = torch.exp(-torch.sum(theta * bwv * dj, dim=-1))
-        vj = _vdot(gbv, ej * ej) / _vdot(gbv, torch.ones_like(ys)) / sfj
-        qv = gv + lam * torch.sqrt(vj)[:, None] * torch.sqrt(sigj) * lv
-        yjf = betaj + _vdot(qv, tempj)
-        rmscv = torch.sqrt(torch.mean((y - yjf) ** 2))
+        rmscv = (_jackknife(x, y, theta, alpha, lam, bwv) if jackknife
+                 else torch.tensor(math.nan, dtype=dt, device=dev))
     return CGPFit(x=x, y=y, lam=lam.detach(), theta=theta.detach(),
                   alpha=alpha.detach(), bandwidth=bwv.detach(), sig=sig,
                   sf=sf, res2=e * e, temp=temp, invq_chol=chol, beta=beta,
                   tau2=tau2, objval=objval, rmscv=rmscv)
 
 
-def cgp_predict(fit: CGPFit, x_new: torch.Tensor) -> CGPPrediction:
+def _jackknife(x, y, theta, alpha, lam, bwv):
+    """The jackknife RMSCV (`:171-199`): the n leave-one-out refits at the
+    fit's rates as one batch, each predicting its held-out point."""
+    n, dev = x.shape[0], x.device
+    keep = torch.stack([torch.cat([torch.arange(j, device=dev),
+                                   torch.arange(j + 1, n, device=dev)])
+                        for j in range(n)])                  # (n, n - 1)
+    xs, ys = x[keep], y[keep]
+    sigj, sfj, ej, cholj, betaj, _ = _factor(xs, ys, theta, alpha, lam, bwv)
+    tempj = linalg.chol_solve(cholj, ys - betaj[..., None])
+    dj = (xs - x[:, None, :]) ** 2                           # (n, n - 1, p)
+    gv = torch.exp(-torch.sum(theta * dj, dim=-1))
+    lv = torch.exp(-torch.sum(alpha * dj, dim=-1))
+    gbv = torch.exp(-torch.sum(theta * bwv * dj, dim=-1))
+    vj = _vdot(gbv, ej * ej) / _vdot(gbv, torch.ones_like(ys)) / sfj
+    qv = gv + lam * torch.sqrt(vj)[:, None] * torch.sqrt(sigj) * lv
+    yjf = betaj + _vdot(qv, tempj)
+    return torch.sqrt(torch.mean((y - yjf) ** 2))
+
+
+def cgp_predict(fit: CGPFit, x_new: torch.Tensor,
+                alpha_level: float = 0.05) -> CGPPrediction:
     """predict.CGP (`:249-321`) over all test points at once, with the
-    reference's fixed +/-1.96 sigma intervals."""
+    reference's fixed +/-1.96 sigma intervals for any alpha_level: it is
+    accepted, as in JAX, and the reference hard-codes 95%."""
     x, y = fit.x, fit.y
     x_new = x_new.to(dtype=x.dtype, device=x.device)
     ones = torch.ones_like(y)

@@ -106,7 +106,9 @@ def make_logpost(spec: MixtureSpec, x: torch.Tensor, y: torch.Tensor,
     """logpost(z) -> LogPost for unconstrained z (differentiable: Laplace
     takes its gradient and Hessian). One bordered factorization gives the
     factor, logdet and every quadratic form; whiten=True adds the solve of
-    the centred residual y - beta for the quadratic."""
+    the centred residual y - beta for the quadratic. `logpost.to(device)`
+    is the same log-posterior on x, y and sigma2 moved to `device` (a
+    mesh of distinct devices runs a shard on each)."""
     n = y.shape[-1]
 
     def logpost(z: torch.Tensor) -> LogPost:
@@ -128,6 +130,14 @@ def make_logpost(spec: MixtureSpec, x: torch.Tensor, y: torch.Tensor,
         return LogPost(val=_finite_or_neg_inf(val), beta=beta,
                        chol=q["chol"], params=params)
 
+    def to(device):
+        s2 = sigma2.to(device) if isinstance(sigma2, torch.Tensor) else sigma2
+        return make_logpost(spec, x.to(device), y.to(device), s2,
+                            theta1_prior=theta1_prior,
+                            theta2_prior=theta2_prior, p_prior=p_prior,
+                            jitter=jitter, whiten=whiten)
+
+    logpost.to = to
     return logpost
 
 

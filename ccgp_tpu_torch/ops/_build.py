@@ -28,6 +28,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -136,6 +137,17 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count(wrapper) -> None:
+    """One more launch on a kernel wrapper's counter (`wrapper.launches`).
+    Shards on distinct devices launch from a host thread each, and `+= 1`
+    is a read-modify-write, so the counters take a lock."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def check(code: int, what: str) -> None:

@@ -175,7 +175,7 @@ def chol_quadratics_lanes(grams: torch.Tensor, y: torch.Tensor,
     grams, y = grams.contiguous(), y.contiguous()
     q, _, _, _ = _outputs(grams, factors=False)
     if grams.shape[0]:
-        chol_quadratics_lanes.launches += 1
+        _build.count(chol_quadratics_lanes)
         _launch(grams, y, jitter, q, None, None, None)
     return {k: q[:, i] for i, k in enumerate(_QUADS)}
 
@@ -192,7 +192,7 @@ def chol_factors_lanes(grams: torch.Tensor, y: torch.Tensor,
     grams, y = grams.contiguous(), y.contiguous()
     q, chol, wy, wo = _outputs(grams, factors=True)
     if grams.shape[0]:
-        chol_factors_lanes.launches += 1
+        _build.count(chol_factors_lanes)
         _launch(grams, y, jitter, q, chol, wy, wo)
     out = {"chol": chol, "wy": wy, "wo": wo}
     out.update({k: q[:, i] for i, k in enumerate(_QUADS)})

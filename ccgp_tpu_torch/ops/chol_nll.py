@@ -100,7 +100,7 @@ def chol_nll(grams: torch.Tensor, y: torch.Tensor, jitter=0.0) -> dict:
         lib = _build.library()
         fn = (lib.ccgp_chol_nll_f32 if grams.dtype == torch.float32
               else lib.ccgp_chol_nll_f64)
-        chol_nll.launches += 1
+        _build.count(chol_nll)
         _build.check(fn(_build.ptr(grams), _build.ptr(y), _build.ptr(q), b,
                         n, float(jitter), _build.stream(grams.device)),
                      "chol_nll")

@@ -361,7 +361,7 @@ def fused_mix_mh_rounds(x, y, z, lp_val, lp_beta, sigma2, deltas, log_u,
     lib = _build.library()
     fn = (lib.ccgp_mh_rounds_f32 if dt == torch.float32
           else lib.ccgp_mh_rounds_f64)
-    fused_mix_mh_rounds.launches += 1
+    _build.count(fused_mix_mh_rounds)
     _build.check(fn(_build.ptr(x), _build.ptr(y), _build.ptr(z),
                     _build.ptr(st), _build.ptr(deltas), _build.ptr(log_u),
                     _build.ptr(rec), _build.ptr(info), _build.ptr(st_out),
@@ -497,7 +497,7 @@ def chol_quadratics_smallk(grams, y, jitter=0.0) -> dict:
     q = torch.empty((kk, 4), dtype=grams.dtype, device=grams.device)
     ws = _workspace("chol_quadratics_smallk", n, kk, grams)
     fn = _lib_fn("ccgp_chol_quad_smallk", grams.dtype)
-    chol_quadratics_smallk.launches += 1
+    _build.count(chol_quadratics_smallk)
     _build.check(fn(_build.ptr(grams), _build.ptr(y), _build.ptr(q),
                     _build.ptr(ws), n, kk, float(jitter),
                     _build.stream(grams.device)), "chol_quadratics_smallk")
@@ -527,7 +527,7 @@ def fused_mix_quadratics_smallk(x, y, r1, r2, p, jitter=0.0) -> dict:
     q = torch.empty((kk, 4), dtype=x.dtype, device=x.device)
     ws = _workspace("fused_mix_quadratics_smallk", n, kk, x)
     fn = _lib_fn("ccgp_mix_quad_smallk", x.dtype)
-    fused_mix_quadratics_smallk.launches += 1
+    _build.count(fused_mix_quadratics_smallk)
     _build.check(fn(_build.ptr(x), _build.ptr(y), _build.ptr(r1),
                     _build.ptr(r2), _build.ptr(p), _build.ptr(q),
                     _build.ptr(ws), n, d, kk, float(jitter),
@@ -601,7 +601,7 @@ def fused_mix_mh_round(x, y, r1, r2, p, extra, log_scale, cands, lp_val,
     info = torch.empty(2, dtype=torch.int32, device=dev)
     ws = _workspace("fused_mix_mh_round", n, kk, x)
     fn = _lib_fn("ccgp_mix_mh_round", dt)
-    fused_mix_mh_round.launches += 1
+    _build.count(fused_mix_mh_round)
     _build.check(fn(*(_build.ptr(t) for t in bufs), _build.ptr(z_out),
                     _build.ptr(vb), _build.ptr(info), _build.ptr(ws), n, d,
                     dim, kk, float(jitter), _build.stream(dev)),

@@ -97,7 +97,7 @@ def fused_mix_quadratics(x, y, r1, r2, p, scale=1.0, shift=0.0,
         lib = _build.library()
         fn = (lib.ccgp_gram_chol_f32 if x.dtype == torch.float32
               else lib.ccgp_gram_chol_f64)
-        fused_mix_quadratics.launches += 1
+        _build.count(fused_mix_quadratics)
         _build.check(fn(*(_build.ptr(t) for t in bufs), _build.ptr(q), b, n,
                         d, float(jitter), _build.stream(x.device)),
                      "fused_mix_quadratics")

@@ -64,12 +64,12 @@ def PRNGKey(seed: int, device="cuda") -> torch.Tensor:
 
 
 def _counts(shape, device):
-    """Low words of the flat uint64 iota over `shape` (high words are 0
-    below 2**32 elements)."""
-    size = math.prod(shape)
-    if size >= 1 << 32:
-        raise NotImplementedError("random arrays of 2**32 or more elements")
-    return torch.arange(size, dtype=torch.int64, device=device).reshape(shape)
+    """The flat uint64 iota over `shape` as (high words, low words), JAX's
+    `iota_2x32_shape`: threefry's counter is 64 bits wide (JAX refuses
+    only arrays of more than 2**64 elements)."""
+    iota = torch.arange(math.prod(shape), dtype=torch.int64,
+                        device=device).reshape(shape)
+    return iota >> 32, iota & _M32
 
 
 def _hash(key: torch.Tensor, shape):
@@ -78,8 +78,8 @@ def _hash(key: torch.Tensor, shape):
     pad = (1,) * len(shape)
     k0 = key[..., 0].reshape(lead + pad)
     k1 = key[..., 1].reshape(lead + pad)
-    x1 = _counts(shape, key.device)
-    return threefry2x32(k0, k1, torch.zeros_like(x1), x1)
+    x0, x1 = _counts(shape, key.device)
+    return threefry2x32(k0, k1, x0, x1)
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
@@ -175,6 +175,16 @@ def _check_key(key: torch.Tensor) -> None:
         raise ValueError("threefry_split_chain needs an int64 (2,) key")
 
 
+def split_chain_supported(key) -> bool:
+    """True when `threefry_split_chain` and `chunk_draws` reproduce a scan
+    of `split(key, 3)` bit for bit: a (2,) int64 tensor whose words are
+    uint32 values. The port has one split layout, JAX's partitionable one,
+    which is what JAX's own check also asks of its configuration."""
+    return (isinstance(key, torch.Tensor) and key.dtype == torch.int64
+            and tuple(key.shape) == (2,)
+            and bool(torch.all((key >= 0) & (key <= _M32))))
+
+
 def threefry_split_chain_plain(key: torch.Tensor, rr: int):
     """rr sequential `key, k1, k2 = split(key, 3)` steps in plain PyTorch.
     Returns (new_key (2,), k1s (rr, 2), k2s (rr, 2))."""
@@ -204,7 +214,7 @@ def threefry_split_chain(key: torch.Tensor, rr: int):
     k1s = torch.empty((rr, 2), dtype=torch.int64, device=key.device)
     k2s = torch.empty((rr, 2), dtype=torch.int64, device=key.device)
     lib = _build.library()
-    threefry_split_chain.launches += 1
+    _build.count(threefry_split_chain)
     _build.check(lib.ccgp_threefry_split_chain(
         _build.ptr(key), _build.ptr(new_key), _build.ptr(k1s),
         _build.ptr(k2s), rr, _build.stream(key.device)),
@@ -220,6 +230,14 @@ threefry_split_chain.launches = 0
 # ---------------------------------------------------------------------------
 
 _DRAW_DTYPES = (torch.float32, torch.float64)
+_INT_MAX = (1 << 31) - 1
+
+
+def _check_sizes(K: int, dim: int) -> None:
+    """The kernel takes K and dim as C ints; it indexes a key segment's
+    draws in 64 bits, so K dim is bounded by memory alone."""
+    if K > _INT_MAX or dim > _INT_MAX:
+        raise ValueError(f"K and dim must be below 2**31, got {K} and {dim}")
 
 
 def chunk_draws_plain(key: torch.Tensor, rr: int, K: int, dim: int,
@@ -243,8 +261,7 @@ def chunk_draws(key: torch.Tensor, rr: int, K: int, dim: int,
     rr, K, dim = int(rr), int(K), int(dim)
     if rr < 1 or K < 1 or dim < 1:
         raise ValueError("rr, K and dim must be >= 1")
-    if K * dim >= 1 << 24:   # a key segment's 128 rounds index in int32
-        raise NotImplementedError("2**24 or more draws per round")
+    _check_sizes(K, dim)
     if dtype not in _DRAW_DTYPES:
         raise TypeError(f"chunk_draws makes float32 or float64, got {dtype}")
     if key.device.type == "cpu":
@@ -258,7 +275,7 @@ def chunk_draws(key: torch.Tensor, rr: int, K: int, dim: int,
     lib = _build.library()
     fn = (lib.ccgp_chunk_draws_f32 if dtype == torch.float32
           else lib.ccgp_chunk_draws_f64)
-    chunk_draws.launches += 1
+    _build.count(chunk_draws)
     _build.check(fn(_build.ptr(key), _build.ptr(new_key), _build.ptr(eps),
                     _build.ptr(log_u), rr, K, dim,
                     _build.stream(key.device)), "chunk_draws")
@@ -305,8 +322,7 @@ def chunk_draws_lanes(keys: torch.Tensor, rr: int, K: int, dim: int,
     rr, K, dim = int(rr), int(K), int(dim)
     if rr < 1 or K < 1 or dim < 1:
         raise ValueError("rr, K and dim must be >= 1")
-    if K * dim >= 1 << 24:
-        raise NotImplementedError("2**24 or more draws per round")
+    _check_sizes(K, dim)
     if dtype not in _DRAW_DTYPES:
         raise TypeError(f"chunk_draws_lanes makes float32 or float64, got "
                         f"{dtype}")
@@ -322,7 +338,7 @@ def chunk_draws_lanes(keys: torch.Tensor, rr: int, K: int, dim: int,
     lib = _build.library()
     fn = (lib.ccgp_chunk_draws_lanes_f32 if dtype == torch.float32
           else lib.ccgp_chunk_draws_lanes_f64)
-    chunk_draws_lanes.launches += 1
+    _build.count(chunk_draws_lanes)
     _build.check(fn(_build.ptr(keys), _build.ptr(new_keys), _build.ptr(eps),
                     _build.ptr(log_u), lanes, rr, K, dim,
                     _build.stream(keys.device)), "chunk_draws_lanes")

@@ -5,12 +5,16 @@ it to a multiple of the device count as `_pad_to` does (repeats of the
 last row), runs each shard on its device and gathers the results on the
 first device, where the padding is dropped. On a one-device mesh that is
 one batched call; a mesh that repeats a device runs the same split, pad
-and gather with its shards one after another. JAX's versions leave the
+and gather with its shards one after another. `multi_chain_metropolis`
+and `sharded_design_sweep` run the shards of distinct devices at once,
+one host thread per device (`_on_devices`). JAX's versions leave the
 collectives to XLA; here the gather is explicit, and each shard computes
 what the unsharded call computes on its rows.
 """
 from __future__ import annotations
 
+import contextlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -49,17 +53,50 @@ def _to(v, dev):
     return v.to(dev) if isinstance(v, torch.Tensor) else v
 
 
-def _gather(parts: list, n: int, dev):
-    """The shards' outputs joined along the leading axis on `dev`, cut to
-    the first n rows; tuples (NamedTuples too) are joined field by field,
-    numpy arrays on the host."""
+def _on_devices(fn: Callable, mesh: Mesh, *arrays) -> list:
+    """fn(device, *shard) for each shard of the arrays (`_split`), in shard
+    order. Where the mesh holds one device, repeated or not, the calls run
+    one after another on the caller's thread. Else each distinct device
+    gets a host thread that runs its shards in order, under that device
+    (the current CUDA device, which a kernel launch uses) and the caller's
+    grad mode; an exception in a shard is raised here once every thread has
+    ended."""
+    devs = mesh.device_list
+    shards = list(zip(*(_split(a, mesh) for a in arrays)))
+    names = list(dict.fromkeys(str(d) for d in devs))
+    if len(names) == 1:
+        return [fn(d, *s) for d, s in zip(devs, shards)]
+    grad = torch.is_grad_enabled()
+
+    def run(name):
+        dev = torch.device(name)
+        ctx = (torch.cuda.device(dev) if dev.type == "cuda"
+               else contextlib.nullcontext())
+        with ctx, torch.set_grad_enabled(grad):
+            return {i: fn(d, *s) for i, (d, s) in enumerate(zip(devs, shards))
+                    if str(d) == name}
+
+    out = {}
+    with ThreadPoolExecutor(len(names)) as pool:
+        futures = [pool.submit(run, name) for name in names]
+    for f in futures:
+        out.update(f.result())
+    return [out[i] for i in range(len(shards))]
+
+
+def _gather(parts: list, n: int, dev, stack: bool = False):
+    """The shards' outputs joined along the leading axis on `dev` (stacked
+    along a new one with stack=True), cut to the first n rows; tuples
+    (NamedTuples too) are joined field by field, numpy arrays and scalars
+    on the host."""
     first = parts[0]
     if isinstance(first, torch.Tensor):
-        return torch.cat([p.to(dev) for p in parts])[:n]
-    if isinstance(first, np.ndarray):
-        return np.concatenate(parts)[:n]
+        join = torch.stack if stack else torch.cat
+        return join([p.to(dev) for p in parts])[:n]
+    if isinstance(first, (np.ndarray, np.generic)):
+        return (np.stack if stack else np.concatenate)(parts)[:n]
     if isinstance(first, tuple):
-        fields = [_gather([p[i] for p in parts], n, dev)
+        fields = [_gather([p[i] for p in parts], n, dev, stack)
                   for i in range(len(first))]
         return (type(first)(*fields) if hasattr(first, "_fields")
                 else tuple(fields))
@@ -95,29 +132,55 @@ def multi_chain_metropolis(logpost: Callable, starts: torch.Tensor,
                            keys: torch.Tensor, mesh: Mesh, **metro_kwargs):
     """Independent K = 1 chains split over the mesh: each shard's chains
     run as the lanes of one `infer.metropolis.metropolis_lanes` call
-    (`metro_kwargs` are its keywords). logpost takes a batch of states
-    (`make_logpost` does) and closes over one device's tensors, so the
-    mesh must be that device, repeated or not. Returns the chains'
-    LanesResult."""
-    if len({str(d) for d in mesh.device_list}) > 1:
-        raise NotImplementedError(
-            "multi_chain_metropolis: a log-posterior closes over one "
-            "device's tensors; give a mesh of that device")
-    parts = [metropolis_lanes(logpost, s, k, **metro_kwargs)
-             for s, k in zip(_split(starts, mesh), _split(keys, mesh))]
+    (`metro_kwargs` are its keywords) on the shard's device. logpost takes
+    a batch of states (`make_logpost`'s does). On a mesh of one device,
+    repeated or not, it runs as given; on a mesh of distinct devices each
+    device runs `logpost.to(device)` (`make_logpost` provides it), built
+    before the shards start, and the devices run at once, a host thread
+    each. A shard on `cuda:k` draws through K2's lanes launch there, one on
+    the CPU through its plain twin. Returns the chains' LanesResult,
+    gathered on the mesh's first device."""
+    devs = {str(d): d for d in mesh.device_list}
+    for d in devs.values():
+        if d.type not in ("cpu", "cuda"):
+            raise NotImplementedError(
+                f"multi_chain_metropolis: chains run on CPU and CUDA "
+                f"devices, not {d}")
+    if len(devs) == 1:
+        logposts = {name: logpost for name in devs}
+    elif callable(getattr(logpost, "to", None)):
+        logposts = {name: logpost.to(d) for name, d in devs.items()}
+    else:
+        raise TypeError(
+            "multi_chain_metropolis: a mesh of distinct devices needs a "
+            "log-posterior with .to(device), as make_logpost's has")
+    parts = _on_devices(
+        lambda dev, s, k: metropolis_lanes(logposts[str(dev)], s, k,
+                                           **metro_kwargs),
+        mesh, starts, keys)
     return _gather(parts, starts.shape[0], mesh.device_list[0])
 
 
-def sharded_design_sweep(fit: Callable, designs: torch.Tensor,
-                         keys: torch.Tensor, mesh: Mesh):
+def sharded_design_sweep(fit_one: Callable, designs: torch.Tensor,
+                         keys: torch.Tensor, mesh: Mesh,
+                         batched: bool = False):
     """The design sweep with the designs (m, n, d) and their keys (m, 2)
-    split over the mesh: `fit(designs (m_s, n, d), keys (m_s, 2))` is
-    called once per shard on the shard's device and returns a tensor, an
-    array or a tuple of them with a leading (m_s,) axis. JAX vmaps a
-    one-design fit; torch cannot vmap a host-driven chain, so `fit` takes
-    the shard's whole batch (`experiments.sim_2d_sweep` runs it as lanes)."""
-    parts = [fit(d, k) for d, k in zip(_split(designs, mesh),
-                                       _split(keys, mesh))]
+    split over the mesh, JAX's contract: `fit_one(design (n, d), key (2,))`
+    fits one design and returns a tensor, an array or a tuple of them; it
+    runs per design on its shard's device, and the results are stacked
+    per shard and gathered on the mesh's first device. Distinct devices run
+    at once, a host thread each. batched=True calls fit_one once per shard
+    with the shard's designs (m_s, n, d) and keys (m_s, 2) and takes a
+    leading (m_s,) axis back: `experiments.sim_2d_sweep` runs a shard's
+    designs as the lanes of one sampler so."""
+    if batched:
+        def run(dev, d, k):
+            return fit_one(d, k)
+    else:
+        def run(dev, d, k):
+            return _gather([fit_one(di, ki) for di, ki in zip(d, k)],
+                           d.shape[0], dev, stack=True)
+    parts = _on_devices(run, mesh, designs, keys)
     return _gather(parts, designs.shape[0], mesh.device_list[0])
 
 

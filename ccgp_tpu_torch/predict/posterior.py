@@ -32,12 +32,29 @@ class PosteriorPrediction(NamedTuple):
 def predictive_moments(spec: MixtureSpec, cache: FactorCache,
                        x: torch.Tensor, x_new: torch.Tensor, sigma2,
                        var_scale: str = "sigma2",
-                       normalized_cross: bool = True):
+                       normalized_cross: bool = True,
+                       solve_mode: Optional[str] = None):
     """Per-draw predictive means and variances at x_new: ((m, t), (m, t)).
-    v = L^-1 r by one batched triangular solve per draw (trsm)."""
+
+    solve_mode picks how v = L^-1 r is formed per draw, as in JAX:
+    "trsm" (the default, also for None) one batched triangular solve
+    against the (n, t) cross block; "inv_matmul" a triangular solve
+    against I_n, then one batched matmul L^-1 @ r. The product must run in
+    full precision (PyTorch's default; TF32 breaks the cancellation
+    1 - r'R^-1 r). Any other value raises ValueError, where JAX's branch
+    takes it as trsm."""
+    if solve_mode not in (None, "trsm", "inv_matmul"):
+        raise ValueError(f"solve_mode must be 'trsm' or 'inv_matmul', got "
+                         f"{solve_mode!r}")
     r = mixed_cross(spec, x, x_new, cache.params, predict=True,
                     normalized=normalized_cross)             # (m, n, t)
-    v = linalg.tri_solve(cache.chol, r)                      # (m, n, t)
+    if solve_mode == "inv_matmul":
+        chol = cache.chol
+        eye = torch.eye(chol.shape[-1], dtype=chol.dtype, device=chol.device)
+        linv = linalg.tri_solve(chol, eye.expand_as(chol))  # (m, n, n)
+        v = torch.matmul(linv, r)                            # (m, n, t)
+    else:
+        v = linalg.tri_solve(cache.chol, r)                  # (m, n, t)
     mean = cache.beta[:, None] + torch.einsum("mn,mnt->mt", cache.a, v)
     rinv_quad = torch.einsum("mnt,mnt->mt", v, v)
     one_rinv_r = torch.einsum("mn,mnt->mt", cache.u, v)

@@ -35,6 +35,10 @@ def logit_to_unit(phi: torch.Tensor):
     return sigmoid(phi), log_sigmoid(phi) + log_sigmoid(-phi)
 
 
+def positive_to_log(theta: torch.Tensor) -> torch.Tensor:
+    return torch.log(theta)
+
+
 def unit_to_logit(p: torch.Tensor) -> torch.Tensor:
     return torch.log(p) - torch.log1p(-p)
 

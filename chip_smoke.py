@@ -176,9 +176,39 @@ Phases, in order; any failure raises and the script exits non-zero:
      if they do; then
      50 draws without warmup, which must stay within 1e-6), and
      `entry()`'s forward (float32 finite; float64 card against CPU within
-     1e-10).
+     1e-10);
+ 22. the options and names the port took over last, each sub-phase's
+     seconds logged: (a) `sim_2d_aniso.run(design=D)` at Config()'s full
+     budget (n = 14, n_max 5000, samp 1000, f64, K = 4), D the first
+     stand-in Train_Design (`sweep_standin_designs`), on the card and the
+     CPU (equal counters; draws, predictions and summaries within 1e-7,
+     phase 12's limit: the chain carries two BFGS stopping points; K1 and
+     K2 launched), and `run(design=<the design run()
+     draws>)` against phase 16's `run()` bit for bit; (b) `run_study(
+     run_single=False, cgp_candidates=105, on_unconverged="raise")` on
+     (a)'s data (the combined GP (a)'s bit for bit), a starved chain
+     raising under "raise" and silent under "ignore"; (c) `cgp_fit(
+     jackknife=False, num_starts=3, ...)` and `mlegp_fit(n_random=4,
+     maxiter=100, log_theta_low=-8, log_theta_high=8)` card against CPU
+     (1e-8; theta 1e-6, sigma^2 and beta 1e-7); (d)
+     `predictive_moments(solve_mode="inv_matmul")` against "trsm" at the
+     bench shape (phase 5's 1000 draws, n = 100, t = 625, f64; JAX's 1e-8
+     and 1e-12), both timed; (e) `multi_chain_metropolis` on the mesh
+     ["cuda:0", "cpu"] (a host thread per device) against each shard's
+     chains on its device alone, bit for bit, K2's lanes launch on the
+     card's shard, and JAX's one-design `sharded_design_sweep` on cuda:0 x
+     2 against the designs one by one; (f) K2 at K dim = 2^24 (rr = 1,
+     f32, 64-bit indices) bit-equal to its twin, timed. Seconds on one
+     H100 80GB HBM3 at 700 W, the CPU twins beside phase 12: (a) and (b)
+     17.0, (c) 3.9, (d) 0.2, (e) 9.7, (f) 0.5, the phase 31.2 of the
+     script's 834.
 
-Every path (5, 8, 9, 10, 12, 13, 15, 16, 17, 18, 19, 20, 21) runs with all
+The CPU sides of phases 16, 19 (all but the heat exchanger's, which scans
+the card's rows), 21's HMC and 22a run in a child process (`_cpu_twins`)
+beside phase 12's card fits, as phase 12's own CPU fits do; the card's
+results are compared with them where the phases run.
+
+Every path (5, 8, 9, 10, 12, 13, 15, 16, 17, 18, 19, 20, 21, 22) runs with all
 launch counters set to 0 just before it and read just after; each must
 launch its kernels (K2's fused kernel once per chunk, 38 in the bench fit,
 and once per round on the one-round and 1-D routes; its lanes launch once
@@ -2292,21 +2322,19 @@ JAX_ANISO_COVERAGE = {"combined": 0.846, "single": 0.845, "cgp": 0.859}
 STUDY_RTOL = 1e-8
 
 
-def run_aniso(device):
+def run_aniso(device, design=None):
     """sim_2d_aniso at its own Config with speculative K = 4, f64, key 0,
-    as the CLI runs it; (result, seconds on the host clock)."""
+    as the CLI runs it, on its own design or `design`; (result, seconds on
+    the host clock)."""
     from ccgp_tpu_torch.experiments import sim_2d_aniso
-    from ccgp_tpu_torch.models.combined_gp import MCMCConfig
     from ccgp_tpu_torch.ops import rng
 
-    cfg = sim_2d_aniso.Config()
-    cfg = type(cfg)(**{**cfg.__dict__, "mcmc": MCMCConfig(
-        **{**cfg.mcmc.__dict__, "speculative": 4})})
+    cfg = _aniso_cfg()
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = sim_2d_aniso.run(cfg, key=rng.PRNGKey(0, device=device),
-                           dtype=torch.float64, device=device)
+                           design=design, dtype=torch.float64, device=device)
     if device == "cuda":
         torch.cuda.synchronize()
     return res, time.perf_counter() - t0
@@ -2319,23 +2347,20 @@ def _summary_line(res) -> str:
             + f" | calibration {s.average_quantile:.5f}")
 
 
-def phase_study():
+def phase_study(twins=None):
+    """16: the study on the card against its CPU record (`twins`' or run
+    here); returns (launches, the card's result)."""
     _zero_counts()
     rg, gpu_s = run_aniso("cuda")
     launches = _read_counts()
-    rc, cpu_s = run_aniso("cpu")
-    mg, mc = rg.fit.mcmc, rc.fit.mcmc
-    for a in ("n_recorded", "n_proposals", "n_rounds", "converged"):
-        if getattr(mg, a) != getattr(mc, a):
-            raise AssertionError(f"study: {a} differs GPU vs CPU")
-    err_z = _rel_err(rg.fit.zs, rc.fit.zs)
-    err_p = max(_rel_err(torch.as_tensor(getattr(rg.predictions[m], f)),
-                         torch.as_tensor(getattr(rc.predictions[m], f)))
-                for m in rg.predictions for f in ("mean", "lower", "upper"))
-    sg, sc = rg.summary, rc.summary
-    err_s = max([abs(sg.rmspe[k] - sc.rmspe[k]) for k in sc.rmspe]
-                + [abs(sg.coverage[k] - sc.coverage[k]) for k in sc.coverage]
-                + [abs(sg.average_quantile - sc.average_quantile)])
+    c = (twins.get("sim_2d_aniso") if twins is not None
+         else _case_record(*run_aniso("cpu"), {}, None))
+    cpu_s = c["secs"]
+    mg, sg = rg.fit.mcmc, rg.summary
+    err = _study_err(_case_record(rg, gpu_s, {}, None), c)
+    err_z, err_s = err.pop("draws"), err.pop("summary")
+    err.pop("sigma2")
+    err_p = max(err.values())
     log(f"[16] sim_2d_aniso full width (n=14 maximin LHS, 25 x 25 lattice, "
         f"n_max 5000, samp 1000, net 1000, f64, K=4, 505 CGP candidates, "
         f"mlegp): n_recorded={mg.n_recorded} n_proposals={mg.n_proposals} "
@@ -2363,7 +2388,7 @@ def phase_study():
     log(f"[16] the JAX package's summary of the same study (CPU, f64) "
         f"agrees to its printed digits: RMSPE {JAX_ANISO_RMSPE}, coverage "
         f"{JAX_ANISO_COVERAGE}")
-    return launches, gpu_s, cpu_s
+    return launches, rg
 
 
 def baselines_1d(device):
@@ -3279,13 +3304,14 @@ def new_shape_kernels(z_gv, eb_row):
 HEAT_CPU_ROWS = 16   # the GPU's best heat rows the CPU scans, with a spread
 
 
-def phase_case_studies():
+def phase_case_studies(twins=None):
     """19: the data-file case studies: 19a the golden GV study on the GPU;
     19b-19d each study on the GPU and then on the CPU (the heat scan on
     the CPU over the GPU's best HEAT_CPU_ROWS rows and every 48th: 624
-    rows of 1000 64 x 64 factorizations on the CPU take minutes), each EB
-    scan also against a CPU scan of the same inputs; 19e save / load; 19f
-    the kernels at the new shapes. Returns ({path: launches}, timings)."""
+    rows of 1000 64 x 64 factorizations on the CPU take minutes; the
+    others `twins`' records where given), each EB scan also against a CPU
+    scan of the same inputs; 19e save / load; 19f the kernels at the new
+    shapes. Returns ({path: launches}, timings)."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -3335,7 +3361,8 @@ def phase_case_studies():
                 _data_root(cpu_root)
             if name == "ground_vibrations":
                 z_gv = mc.laplace.mode.cpu().tolist()
-            c = _case_record(*run_case(name, "cpu")[:4])
+            c = (twins.get(name) if twins is not None and name in TWINS
+                 else _case_record(*run_case(name, "cpu")[:4]))
             _data_root(tmp)
             gpu_s, cpu_s = gpu_s + g["secs"], cpu_s + c["secs"]
             err, eb_err = _compare_case(name, g, c,
@@ -3703,7 +3730,7 @@ def dependent_issue_cycles(iters=4096):
 
 def chain_sass_depth():
     """Not a phase: the dependent instructions on the critical path of one
-    split in `chunk_draws_kernel<float>`'s chain loop, read from
+    split in `chunk_draws_kernel<float, int>`'s chain loop, read from
     `cuobjdump -sass` of csrc/threefry_split_chain.cu built with the
     package's flags. The loop (not unrolled) is the innermost one around
     the store of the round's keys to shared memory (STS.128); each
@@ -3732,13 +3759,13 @@ def chain_sass_depth():
         if m:
             func = m.group(1)
             continue
-        if func and "chunk_draws_kernelIf" in func:
+        if func and "chunk_draws_kernelIfiE" in func:
             m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
             if m:
                 body.append((int(m.group(1), 16), m.group(2).strip()))
     if not body:
-        raise RuntimeError("chain_sass_depth: chunk_draws_kernel<float> not "
-                           "found in the SASS")
+        raise RuntimeError("chain_sass_depth: chunk_draws_kernel<float, "
+                           "int> not found in the SASS")
     sts = [a for a, ins in body if "STS.128" in ins]
     loops = []
     for a, ins in body:
@@ -4403,7 +4430,7 @@ def _hmc_compare(tag, g, c):
     return far
 
 
-def phase_parallel_surface():
+def phase_parallel_surface(twins=None):
     """`dryrun_multichip(4)` on the card repeated four times against the
     one-device mesh; HMC on the card against the CPU (f64, 200 warmup and
     200 draws, then 50 draws without warmup); `entry()`'s forward."""
@@ -4420,7 +4447,7 @@ def phase_parallel_surface():
     _require_launched(launches, ("chunk_draws_lanes",), "dry run")
 
     g, gs = _hmc_run("cuda")
-    c, cs = _hmc_run("cpu")
+    c, cs = twins.get("hmc") if twins is not None else _hmc_run("cpu")
     log(f"[21] HMC 200 warmup + 200 draws ({HMC_LEAPFROG} leapfrog steps, f64): "
         f"{gs:.1f} s on the card, {cs:.1f} s on the CPU")
     if not (torch.all(torch.isfinite(g.samples)) and g.samples.shape
@@ -4429,7 +4456,8 @@ def phase_parallel_surface():
     _hmc_compare("with warmup", g, c)
     # without warmup the step size is fixed and the chains stay together
     g0, _ = _hmc_run("cuda", n_warmup=0, n_samples=HMC_STRICT_DRAWS)
-    c0, _ = _hmc_run("cpu", n_warmup=0, n_samples=HMC_STRICT_DRAWS)
+    c0, _ = (twins.get("hmc without warmup") if twins is not None
+             else _hmc_run("cpu", n_warmup=0, n_samples=HMC_STRICT_DRAWS))
     if _hmc_compare(f"{HMC_STRICT_DRAWS} draws without warmup", g0,
                     c0).size:
         raise AssertionError("HMC without warmup parts between the card "
@@ -4450,6 +4478,483 @@ def phase_parallel_surface():
     return launches
 
 
+# phase 22: the options and names the port took over last
+GAPS_DESIGN = 0             # the stand-in Train_Design that 22a fits
+GAPS_CHAINS = 4             # 22e's chains, two per shard
+GAPS_CHAIN_RUN = dict(n_max=200, samp_size=100, alpha_geweke=0.9,
+                      max_proposals=2000)
+GAPS_SWEEP = 6              # 22e's one-design sweep: designs on cuda:0 x 2
+# 22a's study, GPU against CPU: on this design the plug-in sigma^2 parts
+# by 4e-10 and the draws by 1.9e-8 (an H100 against its host's CPU), the
+# chain carrying the roundoff of two BFGS stopping points (`mlegp_fit`'s,
+# the Laplace fit's); phase 16's design stays within 1e-8. 1e-7 is
+# PATH_1D_RTOL, the CPU tests' limit for a BFGS plug-in against JAX
+GAPS_STUDY_RTOL = PATH_1D_RTOL
+K2_WIDE = (1 << 12, 1 << 12)   # 22f: K, dim, 2^24 draws a round
+MOMENTS_ATOL = (1e-8, 1e-12)   # JAX's tests/test_predict.py:214-215
+CGP_RTOL, MLEGP_RTOL = 1e-8, (1e-6, 1e-7)   # tests/test_torch_baselines.py
+
+
+def gaps_design() -> np.ndarray:
+    """22a's design: stand-in Train_Design GAPS_DESIGN + 1, (14, 2)."""
+    return sweep_standin_designs(GAPS_DESIGN + 1)[GAPS_DESIGN]
+
+
+def _aniso_cfg():
+    """sim_2d_aniso's Config with speculative K = 4, as the CLI runs it."""
+    from ccgp_tpu_torch.experiments import sim_2d_aniso
+    from ccgp_tpu_torch.models.combined_gp import MCMCConfig
+
+    cfg = sim_2d_aniso.Config()
+    return type(cfg)(**{**cfg.__dict__, "mcmc": MCMCConfig(
+        **{**cfg.mcmc.__dict__, "speculative": 4})})
+
+
+def _same_study(a, b) -> bool:
+    """Two StudyResults bit for bit: chain, draws, predictions, summary."""
+    ma, mb = a.fit.mcmc, b.fit.mcmc
+    return ((ma.n_recorded, ma.n_proposals, ma.n_rounds)
+            == (mb.n_recorded, mb.n_proposals, mb.n_rounds)
+            and torch.equal(a.fit.zs, b.fit.zs)
+            and set(a.predictions) == set(b.predictions)
+            and all(np.array_equal(getattr(p, f),
+                                   getattr(b.predictions[m], f))
+                    for m, p in a.predictions.items()
+                    for f in ("mean", "lower", "upper"))
+            and a.summary == b.summary)
+
+
+def _study_err(g, c) -> dict:
+    """Two devices' `_case_record`s of one study: the same chain, and the
+    largest relative difference (`_rel_err`) of the plug-in sigma^2, the
+    draws, each model's mean and interval, and the summary."""
+    if g["chain"] != c["chain"] or g["chain_ok"] != c["chain_ok"]:
+        raise AssertionError(f"chain {g['chain']} on the GPU, {c['chain']} "
+                             f"on the CPU")
+    errs = {"sigma2": abs(g["sigma2"] - c["sigma2"]) / max(1.0,
+                                                          abs(c["sigma2"])),
+            "draws": _rel_err(g["zs"], c["zs"])}
+    for m, fields in c["predictions"].items():
+        errs[m] = max(_rel_err(g["predictions"][m][f], fields[f])
+                      for f in ("mean", "lower", "upper"))
+    (gr, gc, gq), (cr, cc, cq) = g["summary"], c["summary"]
+    errs["summary"] = max([abs(gr[k] - cr[k]) for k in cr]
+                          + [abs(gc[k] - cc[k]) for k in cc] + [abs(gq - cq)])
+    return errs
+
+
+def _gaps_study(study16, twins=None):
+    """22a and 22b: `sim_2d_aniso.run(design=D)` at Config()'s budget on
+    the card and the CPU (`twins`' record, or run here), `run(design=<run()'s
+    own design>)` against phase 16's `run()`, then `run_study`'s options on
+    22a's data."""
+    import warnings
+
+    from ccgp_tpu_torch.design.lhs import maximin_lhs
+    from ccgp_tpu_torch.experiments.common import run_study
+    from ccgp_tpu_torch.experiments.sim_2d_iso import data_2d
+    from ccgp_tpu_torch.models.combined_gp import MCMCConfig
+    from ccgp_tpu_torch.models.priors import InverseGamma, LogNormal
+    from ccgp_tpu_torch.ops import rng
+
+    spec = _spec()      # sim_2d_aniso's mixture
+    cfg = _aniso_cfg()
+    design = gaps_design()
+    _zero_counts()
+    rg, gpu_s = run_aniso("cuda", design)
+    launches = _read_counts()
+    c = (twins.get("sim_2d_aniso design") if twins is not None
+         else _case_record(*run_aniso("cpu", design), {}, None))
+    cpu_s = c["secs"]
+    err = _study_err(_case_record(rg, gpu_s, {}, None), c)
+    mg = rg.fit.mcmc
+    log(f"[22a] sim_2d_aniso.run(design=stand-in Train_Design "
+        f"{GAPS_DESIGN + 1}) at Config()'s budget (n=14, n_max 5000, samp "
+        f"1000, f64, K=4): n_recorded={mg.n_recorded} n_proposals="
+        f"{mg.n_proposals} n_rounds={mg.n_rounds} chain_ok="
+        f"{rg.fit.chain_ok}; GPU: {_summary_line(rg)}; GPU == CPU: "
+        f"{', '.join(f'{k} {v:.3g}' for k, v in err.items())} (tol "
+        f"{GAPS_STUDY_RTOL:g}); {gpu_s:.1f} s on the GPU, {cpu_s:.1f} s on "
+        f"the CPU; launches={launches}")
+    if not max(err.values()) <= GAPS_STUDY_RTOL:
+        raise AssertionError("22a: the given design's study differs GPU "
+                             "vs CPU")
+    if not all(math.isfinite(v) for v in rg.summary.rmspe.values()):
+        raise AssertionError(f"22a: non-finite RMSPE {rg.summary.rmspe}")
+    _require_launched(launches, ("fused_mix_mh_rounds", "chunk_draws"),
+                      "given-design study")
+    key = rng.PRNGKey(0, device="cuda")
+    own = maximin_lhs(rng.split(key)[0], cfg.n_train, 2, dtype=torch.float64)
+    t0 = time.perf_counter()
+    again, _ = run_aniso("cuda", own.cpu().numpy())
+    if not _same_study(again, study16):
+        raise AssertionError("22a: run(design=<run()'s design>) is not "
+                             "run() bit for bit")
+    log(f"[22a] run(design=<the design run() draws>) == phase 16's run() "
+        f"bit for bit ({time.perf_counter() - t0:.1f} s)")
+
+    # 22b: run_study's options on 22a's data, the same keys
+    x, y, x_new, y_true, k_s = data_2d(cfg, key, torch.float64,
+                                       torch.device("cuda"), design)
+    priors = dict(theta1_prior=LogNormal(-1.0, 1.0),
+                  theta2_prior=InverseGamma(3, 4))
+    t0 = time.perf_counter()
+    _zero_counts()
+    rb = run_study(spec, x, y, x_new, y_true, k_s, cfg.mcmc, **priors,
+                   single_variant="mlegp", run_single=False,
+                   cgp_candidates=105, on_unconverged="raise",
+                   device="cuda")
+    b_launches = _read_counts()
+    if "single" in rb.predictions or "cgp" not in rb.predictions:
+        raise AssertionError(f"22b: models {sorted(rb.predictions)}")
+    if not (torch.equal(rb.fit.zs, rg.fit.zs)
+            and np.array_equal(rb.predictions["combined"].mean,
+                               rg.predictions["combined"].mean)):
+        raise AssertionError("22b: the combined GP is not 22a's")
+    if not np.isfinite(rb.predictions["cgp"].mean).all():
+        raise AssertionError("22b: the 105-candidate composite GP is not "
+                             "finite")
+    starved = MCMCConfig(start=cfg.mcmc.start, n_max=400, samp_size=300,
+                         net_samp_size=200, max_proposals=40)
+    short = dict(sigma2=float(rg.fit.sigma2), run_single=False,
+                 run_cgp=False, device="cuda")
+    try:
+        run_study(spec, x, y, x_new, y_true, k_s, starved, **priors,
+                  on_unconverged="raise", **short)
+    except RuntimeError as e:
+        if "unhealthy" not in str(e):
+            raise
+    else:
+        raise AssertionError("22b: a starved chain did not raise")
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        ri = run_study(spec, x, y, x_new, y_true, k_s, starved, **priors,
+                       on_unconverged="ignore", **short)
+    if ri.fit.chain_ok or any(issubclass(w.category, RuntimeWarning)
+                              for w in seen):
+        raise AssertionError("22b: 'ignore' warned or the chain was "
+                             "healthy")
+    log(f"[22b] run_study(run_single=False, cgp_candidates=105, "
+        f"on_unconverged='raise') on 22a's data: models "
+        f"{sorted(rb.predictions)}, the combined GP 22a's bit for bit, "
+        f"cgp rmspe {rb.summary.rmspe['cgp']:.6f}; a starved chain "
+        f"(n_recorded {ri.fit.mcmc.n_recorded} of 300) raised under "
+        f"'raise' and passed silently under 'ignore' "
+        f"({time.perf_counter() - t0:.1f} s); launches={b_launches}")
+    return launches, b_launches, (x, y, rg.fit.sigma2)
+
+
+def _gaps_baselines(x, y):
+    """22c: `cgp_fit` and `mlegp_fit` with their search options on the
+    card against the CPU."""
+    from ccgp_tpu_torch.infer.mle import mlegp_fit
+    from ccgp_tpu_torch.models.composite_gp import cgp_fit
+    from ccgp_tpu_torch.ops import kernels, rng
+
+    t0 = time.perf_counter()
+    cgp_opts = dict(jackknife=False, num_starts=3, nugget_l=0.01,
+                    theta_l=1e-3, alpha_l=5.0, kappa_u=50.0)
+    ml_opts = dict(n_random=4, maxiter=100, log_theta_low=-8.0,
+                   log_theta_high=8.0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        xd, yd = x.to(dev), y.to(dev)
+        cf = cgp_fit(xd, yd, rng.PRNGKey(5, device=dev), **cgp_opts)
+        mf = mlegp_fit(kernels.sqexp_family(), xd, yd,
+                       rng.PRNGKey(6, device=dev), **ml_opts)
+        out[dev] = (cf, mf)
+    (cg, mg), (cc, mc) = out["cuda"], out["cpu"]
+    if not (bool(torch.isnan(cg.rmscv)) and bool(torch.isnan(cc.rmscv))):
+        raise AssertionError("22c: jackknife=False left an RMSCV")
+    cgp_err = max(_rel_err(getattr(cg, f), getattr(cc, f))
+                  for f in cg._fields if f != "rmscv")
+    th_err, s2_err = (_rel_err(mg.theta, mc.theta),
+                      max(_rel_err(mg.sigma2, mc.sigma2),
+                          _rel_err(mg.beta, mc.beta)))
+    log(f"[22c] cgp_fit({', '.join(f'{k}={v}' for k, v in cgp_opts.items())}"
+        f") card vs CPU {cgp_err:.3g} (tol {CGP_RTOL:g}), rmscv NaN; "
+        f"mlegp_fit({', '.join(f'{k}={v}' for k, v in ml_opts.items())}) "
+        f"theta {th_err:.3g}, sigma2 / beta {s2_err:.3g} (tol "
+        f"{MLEGP_RTOL[0]:g} / {MLEGP_RTOL[1]:g}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (cgp_err <= CGP_RTOL and th_err <= MLEGP_RTOL[0]
+            and s2_err <= MLEGP_RTOL[1]):
+        raise AssertionError("22c: the baselines' options part card vs CPU")
+
+
+def _gaps_moments(fit, smi):
+    """22d: `predictive_moments(solve_mode="inv_matmul")` against "trsm" at
+    the bench shape in f64: the bench fit's 1000 retained draws, n = 100,
+    the 25 x 25 lattice; both timed with CUDA events."""
+    from ccgp_tpu_torch.predict.factors import build_factors
+    from ccgp_tpu_torch.predict.posterior import predictive_moments
+
+    x, y, grid = bench_data()
+    t = lambda a: torch.tensor(a, dtype=torch.float64, device="cuda")  # noqa: E731
+    spec = _spec()
+    cache = build_factors(spec, t(x), t(y), fit.zs.double(),
+                          fit.cache.beta.double(), jitter=1e-3)
+    s2 = fit.sigma2.double()
+    moments = {mode: (lambda m=mode: predictive_moments(
+        spec, cache, t(x), t(grid), s2, solve_mode=m))
+        for mode in ("trsm", "inv_matmul")}
+    (mt, vt), (mi, vi) = moments["trsm"](), moments["inv_matmul"]()
+    if mt.shape != (fit.zs.shape[0], 625):
+        raise AssertionError(f"22d: moments of shape {tuple(mt.shape)}")
+    dm = float(torch.max(torch.abs(mt - mi)))
+    dv = float(torch.max(torch.abs(vt - vi)))
+    ms = {mode: _cuda_ms(fn, 5) for mode, fn in moments.items()}
+    log(f"[22d] predictive_moments at m={mt.shape[0]} n=100 t=625 f64: "
+        f"inv_matmul vs trsm means {dm:.3g} (atol {MOMENTS_ATOL[0]:g}), "
+        f"variances {dv:.3g} (atol {MOMENTS_ATOL[1]:g}); trsm "
+        f"{ms['trsm']:.3f} ms, inv_matmul {ms['inv_matmul']:.3f} ms per "
+        f"call (CUDA events, 5 calls; {smi})")
+    if not (dm <= MOMENTS_ATOL[0] and dv <= MOMENTS_ATOL[1]):
+        raise AssertionError("22d: the solve modes disagree")
+    return ms
+
+
+def _gaps_parallel(x, y, sigma2):
+    """22e: `multi_chain_metropolis` on the mesh ["cuda:0", "cpu"] against
+    each shard's chains on its device alone, bit for bit; JAX's one-design
+    `sharded_design_sweep` on cuda:0 x 2 against the designs one by one."""
+    from ccgp_tpu_torch.models.likelihood import make_logpost
+    from ccgp_tpu_torch.models.priors import InverseGamma, LogNormal
+    from ccgp_tpu_torch.ops import rng
+    from ccgp_tpu_torch.parallel import (
+        make_mesh, multi_chain_metropolis, sharded_design_sweep)
+
+    spec = _spec()
+    lp = make_logpost(spec, x, y, sigma2, theta1_prior=LogNormal(-1.0, 1.0),
+                      theta2_prior=InverseGamma(3, 4))
+    starts = torch.tensor([[1.0, 1.0, 0.0, 0.0]] * GAPS_CHAINS,
+                          dtype=torch.float64, device="cuda")
+    keys = rng.split(rng.PRNGKey(22, device="cuda"), GAPS_CHAINS)
+    h = GAPS_CHAINS // 2
+    t0 = time.perf_counter()
+    _zero_counts()
+    both = multi_chain_metropolis(lp, starts, keys,
+                                  make_mesh(devices=["cuda:0", "cpu"]),
+                                  **GAPS_CHAIN_RUN)
+    launches = _read_counts()
+    both_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    alone = [multi_chain_metropolis(lp, starts[:h], keys[:h],
+                                    make_mesh(devices=["cuda:0"]),
+                                    **GAPS_CHAIN_RUN),
+             multi_chain_metropolis(lp.to("cpu"), starts[h:].cpu(),
+                                    keys[h:].cpu(), make_mesh(devices=["cpu"]),
+                                    **GAPS_CHAIN_RUN)]
+    alone_s = time.perf_counter() - t0
+    for sl, ref, dev in ((slice(0, h), alone[0], "cuda:0"),
+                         (slice(h, None), alone[1], "cpu")):
+        same = (all(torch.equal(getattr(both, f)[sl].cpu(),
+                                getattr(ref, f).cpu())
+                    for f in ("samples", "betas", "logposts"))
+                and all(np.array_equal(getattr(both, f)[sl], getattr(ref, f))
+                        for f in ("n_recorded", "n_proposals", "n_accepted",
+                                  "pvalue")))
+        if not same:
+            raise AssertionError(f"22e: the {dev} shard's chains are not "
+                                 f"its chains on {dev} alone")
+    _require_launched(launches, ("chunk_draws_lanes",),
+                      "two-device chains' CUDA shard")
+    log(f"[22e] multi_chain_metropolis on ['cuda:0', 'cpu'] ({GAPS_CHAINS} "
+        f"chains, a thread per device, {both_s:.1f} s): each shard's chains "
+        f"== its device alone bit for bit (n_proposals "
+        f"{both.n_proposals.tolist()}; the two alone one after the other "
+        f"{alone_s:.1f} s); launches={launches}")
+
+    designs = torch.tensor(sweep_standin_designs(GAPS_SWEEP),
+                           device="cuda")
+    dkeys = rng.split(rng.PRNGKey(23, device="cuda"), GAPS_SWEEP)
+
+    def fit_one(d, k):
+        lpd = make_logpost(spec, d, torch.sin(5.0 * d[:, 0]), 0.5,
+                           theta1_prior=LogNormal(-1.0, 1.0),
+                           theta2_prior=InverseGamma(3, 4), jitter=1e-5)
+        out = lpd(0.1 * rng.normal(k, (4,), d.dtype))
+        return out.val, out.beta
+
+    vals, betas = sharded_design_sweep(fit_one, designs, dkeys,
+                                       make_mesh(devices=["cuda:0"] * 2))
+    ref = [fit_one(d, k) for d, k in zip(designs, dkeys)]
+    if not (vals.shape == (GAPS_SWEEP,)
+            and torch.equal(vals, torch.stack([r[0] for r in ref]))
+            and torch.equal(betas, torch.stack([r[1] for r in ref]))):
+        raise AssertionError("22e: the one-design sweep is not the designs "
+                             "one by one")
+    log(f"[22e] sharded_design_sweep(fit_one) on cuda:0 x 2: {GAPS_SWEEP} "
+        f"designs, (val, beta) per design stacked and gathered, == the "
+        f"designs one by one bit for bit")
+    return launches
+
+
+def _gaps_k2_wide(smi):
+    """22f: K2 at K dim = 2^24 (rr = 1, f32), where it indexes a segment's
+    draws in 64 bits: bit-equal to its twin on the card, timed."""
+    from ccgp_tpu_torch.ops import rng
+
+    kk, dim = K2_WIDE
+    key = rng.PRNGKey(24, device="cuda")
+    got = rng.chunk_draws(key, 1, kk, dim, torch.float32)
+    ref = rng.chunk_draws_plain(key, 1, kk, dim, torch.float32)
+    equal = (torch.equal(got[0], ref[0]) and torch.equal(_bits(got[1]),
+                                                         _bits(ref[1]))
+             and torch.equal(_bits(got[2]), _bits(ref[2])))
+    del ref
+    if not equal:
+        raise AssertionError("22f: K2 at 2^24 draws a round differs from "
+                             "its twin")
+    fn = lambda: rng.chunk_draws(key, 1, kk, dim, torch.float32)  # noqa: E731
+    call = _cuda_ms(fn, 10)
+    k, how = _kernel_ms("chunk_draws", fn, 10, call)
+    plain = _cuda_ms(lambda: rng.chunk_draws_plain(key, 1, kk, dim,
+                                                   torch.float32), 2)
+    bound = _k2_bound(1, kk, dim, 4)
+    log(f"[22f] chunk_draws rr=1 K={kk} dim={dim} f32 (2^24 draws, 64-bit "
+        f"indices): bit-equal to its twin; kernel {k:.4f} ms {how} "
+        f"({call:.4f} ms per call), plain {plain:.3f} ms, bound "
+        f"{bound[0]:.4f} ms ({bound[1]}); {smi}")
+    return k, plain, bound
+
+
+def phase_api_gaps(study16, fit, smi, twins=None):
+    """Phase 22: the options and names the port took over last (22a-22f),
+    each sub-phase's seconds logged."""
+    t0 = time.perf_counter()
+    a_launches, b_launches, (x, y, s2) = _gaps_study(study16, twins)
+    log(f"[22a/b] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _gaps_baselines(x, y)
+    log(f"[22c] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ms = _gaps_moments(fit, smi)
+    log(f"[22d] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    e_launches = _gaps_parallel(x, y, s2)
+    log(f"[22e] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    k2 = _gaps_k2_wide(smi)
+    log(f"[22f] phase {time.perf_counter() - t0:.1f} s")
+    launches = {k: a_launches[k] + b_launches[k] + e_launches[k]
+                for k in a_launches}
+    return launches, ms, k2
+
+
+# ---------------------------------------------------------------------------
+# the CPU twins: the CPU sides of phases 16, 19, 21 and 22a, computed in a
+# child process beside phase 12's card fits
+# ---------------------------------------------------------------------------
+
+# what the child computes, in order: the card's results in those phases
+# depend on none of it, and it depends on nothing the card computes (the
+# heat exchanger's CPU run scans the card's rows, so it stays in phase 19)
+TWINS = ("sim_2d_aniso", "sim_2d_aniso design", "ground_vibrations",
+         "sim_2d_iso_advanced fixed", "sim_2d_iso_advanced reference", "hmc",
+         "hmc without warmup")
+
+
+def _to_numpy(obj):
+    """Tensors in nested tuples (NamedTuples too), lists and dicts to numpy,
+    to cross a process boundary."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    if isinstance(obj, dict):
+        return {k: _to_numpy(v) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(_to_numpy(v) for v in obj))
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_to_numpy(v) for v in obj)
+    return obj
+
+
+def _to_torch(obj):
+    """`_to_numpy`'s inverse: numpy arrays back to CPU tensors."""
+    if isinstance(obj, np.ndarray):
+        return torch.from_numpy(obj)
+    if isinstance(obj, dict):
+        return {k: _to_torch(v) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(_to_torch(v) for v in obj))
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_to_torch(v) for v in obj)
+    return obj
+
+
+def _cpu_twins(queue) -> None:
+    """TWINS one after another in a child process (spawn), each put on
+    `queue` as (name, record as numpy) as soon as it is done, or ("error",
+    the traceback). The studies read their own data root, the same files
+    phase 19's; two threads, beside phase 12's CPU child."""
+    import shutil
+    import tempfile
+    import traceback
+    from pathlib import Path
+
+    tmp = Path(tempfile.mkdtemp(prefix="ccgp_twins_"))
+    try:
+        torch.set_num_threads(2)
+        gv_data_root(tmp)
+        standin_data_root(tmp)
+        _data_root(tmp)
+        for name in TWINS:
+            if name == "sim_2d_aniso":
+                rec = _case_record(*run_aniso("cpu"), {}, None)
+            elif name == "sim_2d_aniso design":
+                rec = _case_record(*run_aniso("cpu", gaps_design()), {}, None)
+            elif name == "hmc":
+                rec = _hmc_run("cpu")
+            elif name == "hmc without warmup":
+                rec = _hmc_run("cpu", n_warmup=0, n_samples=HMC_STRICT_DRAWS)
+            else:
+                rec = _case_record(*run_case(name, "cpu")[:4])
+            queue.put((name, _to_numpy(rec)))
+    except Exception:   # the parent raises with it
+        queue.put(("error", traceback.format_exc()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+class _Twins:
+    """The child that computes TWINS (`_cpu_twins`) and the records it has
+    sent; `get` waits for one, `close` ends the child."""
+
+    def __init__(self):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.queue = ctx.Queue()
+        self.child = ctx.Process(target=_cpu_twins, args=(self.queue,))
+        self.child.start()
+        self.got = {}
+
+    def get(self, name):
+        import queue
+
+        deadline = time.monotonic() + 1800
+        while name not in self.got:
+            try:
+                key, rec = self.queue.get(timeout=5)
+            except queue.Empty:
+                if not self.child.is_alive() or time.monotonic() > deadline:
+                    raise AssertionError(f"the CPU twins ended without "
+                                         f"{name}") from None
+                continue
+            if key == "error":
+                raise AssertionError(f"the CPU twins failed:\n{rec}")
+            self.got[key] = _to_torch(rec)
+        return self.got[name]
+
+    def close(self):
+        """Join the child, which exits once its records are read, or kill
+        it (a failed phase leaves records unread)."""
+        self.child.join(timeout=60 if len(self.got) == len(TWINS) else 1)
+        if self.child.is_alive():
+            self.child.kill()
+            self.child.join()
+
+
 def _record(name, source, replaces, launches, err, timed):
     k, p, lib, (bound_ms, bound_by) = timed
     return {"name": name, "route": "cuda", "source": source,
@@ -4458,16 +4963,20 @@ def _record(name, source, replaces, launches, err, timed):
             "bound_by": bound_by, "library_ms": lib}
 
 
-def _k2_record(launches, err, times):
+def _k2_record(launches, err, times, wide):
     """K2's record with its two bounds: `bound_ms`, the roofline over the
     fused work, and `serial_floor_ms`, the key chain's serial floor;
-    `bound` names the larger, the one that bounds."""
+    `bound` names the larger, the one that bounds. `wide_*`: phase 22f's
+    launch at 2^24 draws a round (64-bit indices), its kernel, plain and
+    bound ms."""
     rec = _record("chunk_draws", "ccgp_tpu_torch/csrc/threefry_split_chain.cu",
                   "ccgp_tpu/ops/pallas_rng.py:122", launches, err,
                   times[("chunk_draws", 120)])
     floor = times[("chunk_draws floor", 120)]
     rec.update(serial_floor_ms=floor,
-               bound="serial_floor" if floor > rec["bound_ms"] else "roofline")
+               bound="serial_floor" if floor > rec["bound_ms"] else "roofline",
+               wide_ms=wide[0], wide_plain_ms=wide[1],
+               wide_bound_ms=wide[2][0])
     return rec
 
 
@@ -4535,22 +5044,31 @@ def _main(name, smi, sweep_tmp) -> int:
     # their hundreds of thousands of small launches the profiler kept no
     # record of most timing loops
     times = _timed("[6]", phase_timing, fit)
-    paths.update(_timed("[12]", phase_1d))
-    paths.update(_timed("[13]", phase_one_round))
-    t0 = time.perf_counter()
-    paths["study sim_2d_aniso"], _, _ = phase_study()
-    phase_baselines_1d()
-    log(f"[16] phase {time.perf_counter() - t0:.1f} s")
-    paths["whiten"], _ = _timed("[17]", phase_whiten, bench_ms)
-    paths["ME design"], _, _ = _timed("[18]", phase_me_design)
-    case_paths, _ = _timed("[19]", phase_case_studies)
-    paths.update(case_paths)
-    paths["sweep"], k2l_err = _timed("[20]", phase_sweep, sweep_root)
-    paths["parallel surface"] = _timed("[21]", phase_parallel_surface)
+    # the CPU sides of phases 16, 19, 21 and 22a, beside phase 12's card
+    # fits (host-bound on one core)
+    twins = _Twins()
+    try:
+        paths.update(_timed("[12]", phase_1d))
+        paths.update(_timed("[13]", phase_one_round))
+        t0 = time.perf_counter()
+        paths["study sim_2d_aniso"], study16 = phase_study(twins)
+        phase_baselines_1d()
+        log(f"[16] phase {time.perf_counter() - t0:.1f} s")
+        paths["whiten"], _ = _timed("[17]", phase_whiten, bench_ms)
+        paths["ME design"], _, _ = _timed("[18]", phase_me_design)
+        case_paths, _ = _timed("[19]", phase_case_studies, twins)
+        paths.update(case_paths)
+        paths["sweep"], k2l_err = _timed("[20]", phase_sweep, sweep_root)
+        paths["parallel surface"] = _timed("[21]", phase_parallel_surface,
+                                           twins)
+        paths["API gaps"], _, k2_wide = _timed("[22]", phase_api_gaps,
+                                               study16, fit, smi, twins)
+    finally:
+        twins.close()
     launches = {k: sum(c[k] for c in paths.values()) for k in _counted()}
     log(f"[launches] per path: {paths}")
     kernels = [
-        _k2_record(launches["chunk_draws"], rng_err, times),
+        _k2_record(launches["chunk_draws"], rng_err, times, k2_wide),
         _k2_lanes_record(launches["chunk_draws_lanes"], k2l_err, times),
         _record("fused_mix_mh_rounds", "ccgp_tpu_torch/csrc/mh_rounds.cu",
                 "ccgp_tpu/ops/pallas_chol_smallk.py:1357",

@@ -153,14 +153,15 @@ def test_converted_jax_fit_predicts_the_same(data, jax_run):
 
 
 def test_unported_options_raise(data, torch_run):
-    """An option the port still lacks raises rather than computing
-    something else: `predictive_moments(solve_mode=...)` (JAX
-    `predict/posterior.py:55`; the port has only the triangular solve)."""
+    """An option neither package has raises rather than computing
+    something else: `predictive_moments(solve_mode=...)` takes "trsm" and
+    "inv_matmul" (JAX `predict/posterior.py:55`), and refuses any other
+    value."""
     from ccgp_tpu_torch.predict.posterior import predictive_moments
 
     x, _, grid = data
     spec, fit, _, _, _ = torch_run
-    with pytest.raises(TypeError):
+    with pytest.raises(ValueError, match="cho_solve"):
         predictive_moments(spec, fit.cache, t(x), t(grid), fit.sigma2,
                            solve_mode="cho_solve")
 

@@ -1013,3 +1013,123 @@ def test_entry_forward_gpu_equals_cpu(cuda):
         assert _rel(g, c) <= 1e-10
     for g in fg(*ag):
         assert torch.all(torch.isfinite(g))
+
+
+# ---------------------------------------------------------------------------
+# the last options: K2 at 2^24 draws a round, chains over the card and the
+# CPU at once, the inv_matmul moments, the one-design sweep
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chunk_draws_kernel_bit_equal_at_2_24_draws_per_round(cuda, dtype):
+    """K dim = 2^24 (rr = 1), where a segment's draws are indexed in 64
+    bits: the single launch and a two-lane launch bit-equal to their
+    twins."""
+    kk = dim = 1 << 12
+    key = rng.PRNGKey(24, device=cuda)
+    got = rng.chunk_draws(key, 1, kk, dim, dtype)
+    ref = rng.chunk_draws_plain(key, 1, kk, dim, dtype)
+    assert torch.equal(got[0], ref[0])
+    for g, r in zip(got[1:], ref[1:]):
+        assert torch.equal(_bits(g), _bits(r))
+    del ref
+    keys = rng.split(key, 2)
+    lanes = rng.chunk_draws_lanes(keys, 1, kk, dim, dtype)
+    for i in range(2):
+        single = rng.chunk_draws(keys[i], 1, kk, dim, dtype)
+        assert torch.equal(lanes[0][i], single[0])
+        for j in (1, 2):
+            assert torch.equal(_bits(lanes[j][i]), _bits(single[j]))
+
+
+def test_multi_chain_metropolis_on_the_card_and_the_cpu(cuda):
+    """The mesh ["cuda:0", "cpu"]: the card's shard equals its chains on
+    cuda:0 alone and the CPU's shard its chains on the CPU alone, bit for
+    bit; the card's shard draws through K2's lanes launch."""
+    from ccgp_tpu_torch.models.likelihood import make_logpost
+    from ccgp_tpu_torch.parallel import make_mesh, multi_chain_metropolis
+
+    g = np.random.default_rng(0)
+    x = torch.tensor(g.uniform(size=(10, 2)), device=cuda)
+    y = torch.sin(5 * x[:, 0]) + torch.cos(3 * x[:, 1])
+    spec = MixtureSpec(kernels.sqexp_family(), kernels.sqexp_family(), dim=2)
+    lp = make_logpost(spec, x, y, 0.5, theta1_prior=InverseGamma(3, 2),
+                      theta2_prior=InverseGamma(5, 16), jitter=1e-6)
+    starts = torch.tensor([[1.0, 1.0, 0.0]] * 4, dtype=torch.float64,
+                          device=cuda)
+    keys = rng.split(rng.PRNGKey(3, device=cuda), 4)
+    run = dict(n_max=200, samp_size=100, alpha_geweke=0.9)
+    before = rng.chunk_draws_lanes.launches
+    both = multi_chain_metropolis(lp, starts, keys,
+                                  make_mesh(devices=["cuda:0", "cpu"]), **run)
+    assert rng.chunk_draws_lanes.launches > before
+    alone = (multi_chain_metropolis(lp, starts[:2], keys[:2],
+                                    make_mesh(devices=["cuda:0"]), **run),
+             multi_chain_metropolis(lp.to("cpu"), starts[2:].cpu(),
+                                    keys[2:].cpu(),
+                                    make_mesh(devices=["cpu"]), **run))
+    for sl, ref in ((slice(0, 2), alone[0]), (slice(2, 4), alone[1])):
+        for f in ("samples", "betas", "logposts"):
+            assert torch.equal(getattr(both, f)[sl].cpu(),
+                               getattr(ref, f).cpu())
+        for f in ("n_recorded", "n_proposals", "n_accepted", "pvalue"):
+            np.testing.assert_array_equal(getattr(both, f)[sl],
+                                          getattr(ref, f))
+
+
+@pytest.mark.parametrize("jitter", [1e-4, 1e-6])
+def test_predictive_moments_inv_matmul_on_the_card(cuda, jitter):
+    """`solve_mode="inv_matmul"` on the card against "trsm" within JAX's
+    own tolerances (1e-8 on means, 1e-12 on variances), and against the
+    CPU's inv_matmul within 1e-10 at jitter 1e-4; at JAX's test's 1e-6 the
+    factors of the two devices part by conditioning-amplified roundoff
+    (1.1e-9 on the means on an H100, where JAX's two modes part
+    by 1.2e-9), so there within JAX's tolerances."""
+    from ccgp_tpu_torch.predict.factors import build_factors
+    from ccgp_tpu_torch.predict.posterior import predictive_moments
+
+    g = np.random.default_rng(0)
+    spec = MixtureSpec(kernels.sqexp_family(), kernels.sqexp_family(), dim=2)
+    arrays = (g.uniform(size=(18, 2)), g.normal(size=18),
+              g.uniform(size=(11, 2)), 0.3 * g.normal(size=(9, 3)),
+              0.1 * g.normal(size=9))
+    out = {}
+    for dev in (cuda, "cpu"):
+        x, y, xt, zs, betas = (torch.tensor(a, device=dev) for a in arrays)
+        cache = build_factors(spec, x, y, zs, betas, jitter=jitter)
+        out[str(dev)] = [predictive_moments(spec, cache, x, xt, 0.8,
+                                            solve_mode=m)
+                         for m in ("trsm", "inv_matmul")]
+    (gt, gi), (_, ci) = out["cuda"], out["cpu"]
+    assert float(torch.max(torch.abs(gt[0] - gi[0]))) <= 1e-8
+    assert float(torch.max(torch.abs(gt[1] - gi[1]))) <= 1e-12
+    if jitter == 1e-4:
+        for a, b in zip(gi, ci):
+            assert _rel(a, b) <= 1e-10
+    else:
+        assert float(torch.max(torch.abs(gi[0].cpu() - ci[0]))) <= 1e-8
+        assert float(torch.max(torch.abs(gi[1].cpu() - ci[1]))) <= 1e-12
+
+
+def test_sharded_design_sweep_one_design_on_a_repeated_card(cuda):
+    """JAX's contract, a fit of one design, on cuda:0 x 2: the designs one
+    by one, stacked and gathered."""
+    from ccgp_tpu_torch.models.likelihood import make_logpost
+    from ccgp_tpu_torch.parallel import make_mesh, sharded_design_sweep
+
+    spec = MixtureSpec(kernels.sqexp_family(), kernels.sqexp_family(), dim=2)
+    designs = torch.tensor(np.random.default_rng(1).uniform(size=(5, 9, 2)),
+                           device=cuda)
+    keys = rng.split(rng.PRNGKey(0, device=cuda), 5)
+
+    def fit_one(d, k):
+        lp = make_logpost(spec, d, torch.sin(5.0 * d[:, 0]), 0.5,
+                          theta1_prior=InverseGamma(3, 2),
+                          theta2_prior=InverseGamma(5, 16), jitter=1e-5)
+        return lp(0.1 * rng.normal(k, (3,), d.dtype)).val
+
+    got = sharded_design_sweep(fit_one, designs, keys,
+                               make_mesh(devices=["cuda:0"] * 2))
+    assert got.shape == (5,) and got.device.type == "cuda"
+    assert torch.equal(got, torch.stack([fit_one(d, k)
+                                         for d, k in zip(designs, keys)]))

@@ -159,8 +159,8 @@ def test_sharded_design_sweep(meshes, data):
     ref = jpar.sharded_design_sweep(_jfit_one, jnp.asarray(data["designs"]),
                                     keys, j1)
     tkeys = trng.split(trng.PRNGKey(0, device="cpu"), 10)
-    outs = [tpar.sharded_design_sweep(_tfit, _t(data["designs"]), tkeys, m)
-            for m in (m1, m8)]
+    outs = [tpar.sharded_design_sweep(_tfit, _t(data["designs"]), tkeys, m,
+                                      batched=True) for m in (m1, m8)]
     assert outs[0].shape == (10,)
     assert _rel(outs[0], ref) < 1e-10
     assert torch.equal(outs[1], outs[0])
@@ -171,7 +171,8 @@ def test_sharded_design_sweep(meshes, data):
         v = _tfit(designs, keys)
         return v, v.numpy() * 2
 
-    v, w = tpar.sharded_design_sweep(pair, _t(data["designs"]), tkeys, m8)
+    v, w = tpar.sharded_design_sweep(pair, _t(data["designs"]), tkeys, m8,
+                                     batched=True)
     assert torch.equal(v, outs[0]) and np.array_equal(w, 2 * v.numpy())
 
 
@@ -206,7 +207,7 @@ def test_multi_chain_metropolis(meshes, data):
     assert torch.equal(outs[1].samples, res.samples)
     # chains are independent: different keys -> different draws
     assert not torch.allclose(res.samples[0], res.samples[1])
-    # a log-posterior closes over one device: a mesh of two is refused
+    # a shard on a device the port does not run chains on is refused
     with pytest.raises(NotImplementedError):
         tpar.multi_chain_metropolis(tlp, _t(starts), keys,
                                     tpar.make_mesh(devices=["cpu", "meta"]),
