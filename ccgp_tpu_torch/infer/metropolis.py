@@ -39,7 +39,10 @@ ahead from one `ops.rng.chunk_draws_lanes` call.
 The loop conditions live on the host: a one-round body reads its
 acceptance back once per round, a chunk its acc/consumed flags once per
 chunk. The Geweke statistic (a few hundred scalar operations) runs on the
-host copy of its window.
+host copy of its window. Each of the three runs as the span `sampler`,
+with a `geweke` span per check and its rounds
+counted as `rounds.kept`; the chunked one also spans each `chunk` and
+counts the rounds it launched, `rounds.launched` (`utils.trace`).
 """
 from __future__ import annotations
 
@@ -54,6 +57,7 @@ from ccgp_tpu_torch.infer.geweke import geweke_pvalue
 from ccgp_tpu_torch.infer.laplace import LaplaceFit, laplace
 from ccgp_tpu_torch.models.likelihood import first_acceptance
 from ccgp_tpu_torch.ops import rng
+from ccgp_tpu_torch.utils import trace
 
 ROUNDS_PER_CALL_WARM = 120
 
@@ -152,6 +156,7 @@ def metropolis(
                           dim, dtype, dev)
 
 
+@trace.span("sampler")
 def _one_round(logpost, z0, key, fit, n_max, samp_size, batch_size,
                alpha_geweke, proposal_cov_scale, max_proposals, K, record,
                logpost_batch, mh_round, dim, dtype, dev) -> MetropolisResult:
@@ -198,14 +203,17 @@ def _one_round(logpost, z0, key, fit, n_max, samp_size, batch_size,
             lpv = torch.where(accept, vc, lpv)
             lpb = torch.where(accept, bc, lpb)
         P[k_rec] = torch.cat([z, lpb.reshape(1), lpv.reshape(1)])
-        acc_h = bool(accept)
+        acc_h = bool(trace.readback(accept))
         rec = acc_h or record == "all"
         k_rec += int(rec)
         n_acc += int(acc_h)
-        n_prop += int(consumed)
+        n_prop += consumed if K == 1 else int(trace.readback(consumed))
         n_rnd += 1
         if rec and k_rec >= samp_size and k_rec % batch_size == 0:
-            pv = float(geweke_pvalue(P[k_rec - samp_size:k_rec, :dim].cpu()))
+            with trace.span("geweke"):
+                pv = float(geweke_pvalue(trace.readback(
+                    P[k_rec - samp_size:k_rec, :dim])))
+    trace.count("rounds.kept", n_rnd)
     recorded = torch.arange(n_max, device=dev) < k_rec
     return MetropolisResult(
         samples=P[:, :dim], betas=P[:, dim],
@@ -216,6 +224,7 @@ def _one_round(logpost, z0, key, fit, n_max, samp_size, batch_size,
         n_rounds=n_rnd if K > 1 else n_prop)
 
 
+@trace.span("sampler")
 def _chunked(logpost, z0, key, fit, n_max, samp_size, batch_size,
              alpha_geweke, proposal_cov_scale, max_proposals, K, mh_rounds,
              rounds_per_call, rounds_per_call_warm, stash_rows, stash_lanes,
@@ -237,45 +246,53 @@ def _chunked(logpost, z0, key, fit, n_max, samp_size, batch_size,
          "lpv": lp0.val, "lpb": lp0.beta}
 
     def chunk(rr: int, check: bool):
-        key, eps, log_u = rng.chunk_draws(s["key"], rr, K, dim, dtype)
-        deltas = eps.reshape(rr * K, dim) @ prop_chol.T
-        out = mh_rounds(s["z"], s["lpv"], s["lpb"], deltas, log_u)
-        flags = torch.stack([out["acc"].to(torch.int64),
-                             out["consumed"].to(torch.int64)]).cpu()
-        acc, con = flags[0], flags[1]
-        k_rec, n_prop = s["k_rec"], s["n_prop"]
-        cum_acc = torch.cumsum(acc, 0)
-        cum_con = torch.cumsum(con, 0)
-        # a round ran iff every cap held before it: always a prefix
-        runnable = (((n_prop + cum_con - con) < max_proposals)
-                    & ((k_rec + cum_acc - acc) < n_max))
-        pos = k_rec + cum_acc
-        # accepted rows first (stable), landed as one slab at k_rec; rows
-        # past the valid prefix are scratch that later chunks overwrite
-        idx = torch.arange(rr)
-        order = torch.argsort(torch.where(acc > 0, idx, rr + idx)).to(dev)
-        P[k_rec:k_rec + rr] = out["rec"][order]
-        if ST is not None:
-            if ST.shape[0] < full:
-                s["st_ok"] = s["st_ok"] and k_rec + rr <= ST.shape[0]
-            row = min(k_rec, ST.shape[0] - rr)   # a clamped slab write
-            ST[row:row + rr] = out["stash"][order]
+        with trace.span("chunk"):
+            trace.count("rounds.launched", rr)
+            key, eps, log_u = rng.chunk_draws(s["key"], rr, K, dim, dtype)
+            deltas = eps.reshape(rr * K, dim) @ prop_chol.T
+            out = mh_rounds(s["z"], s["lpv"], s["lpb"], deltas, log_u)
+            flags = trace.readback(torch.stack(
+                [out["acc"].to(torch.int64),
+                 out["consumed"].to(torch.int64)]))
+            acc, con = flags[0], flags[1]
+            k_rec, n_prop = s["k_rec"], s["n_prop"]
+            cum_acc = torch.cumsum(acc, 0)
+            cum_con = torch.cumsum(con, 0)
+            # a round ran iff every cap held before it: always a prefix
+            runnable = (((n_prop + cum_con - con) < max_proposals)
+                        & ((k_rec + cum_acc - acc) < n_max))
+            pos = k_rec + cum_acc
+            # accepted rows first (stable), landed as one slab at k_rec;
+            # rows past the valid prefix are scratch that later chunks
+            # overwrite
+            idx = torch.arange(rr)
+            order = torch.argsort(torch.where(acc > 0, idx, rr + idx)).to(dev)
+            P[k_rec:k_rec + rr] = out["rec"][order]
+            if ST is not None:
+                if ST.shape[0] < full:
+                    s["st_ok"] = s["st_ok"] and k_rec + rr <= ST.shape[0]
+                row = min(k_rec, ST.shape[0] - rr)   # a clamped slab write
+                ST[row:row + rr] = out["stash"][order]
         valid = runnable
         if check:
             check_round = (runnable & (acc > 0) & (pos >= samp_size)
                            & (pos % batch_size == 0))
             if bool(check_round.any()):
-                first_chk = int(torch.argmax(check_round.to(torch.int64)))
-                pos_chk = int(pos[first_chk])
-                window = P[pos_chk - samp_size:pos_chk, :dim].cpu()
-                s["pv"] = float(geweke_pvalue(window))
+                with trace.span("geweke"):
+                    first_chk = int(torch.argmax(check_round.to(torch.int64)))
+                    pos_chk = int(pos[first_chk])
+                    window = trace.readback(
+                        P[pos_chk - samp_size:pos_chk, :dim])
+                    s["pv"] = float(geweke_pvalue(window))
                 if s["pv"] >= alpha_geweke:
                     valid = runnable & (idx <= first_chk)
         n_acc_c = int(torch.sum(torch.where(valid, acc, 0)))
+        n_valid = int(torch.sum(valid))
+        trace.count("rounds.kept", n_valid)
         s["k_rec"] += n_acc_c
         s["n_acc"] += n_acc_c
         s["n_prop"] += int(torch.sum(torch.where(valid, con, 0)))
-        s["n_rnd"] += int(torch.sum(valid))
+        s["n_rnd"] += n_valid
         s["key"] = key
         s["z"], s["lpv"], s["lpb"] = (out["z_fin"], out["val_fin"],
                                       out["beta_fin"])
@@ -438,6 +455,7 @@ def laplace_lanes(logpost_lanes, starts: torch.Tensor,
                                      for f in fits]) for j in range(3)))
 
 
+@trace.span("sampler")
 def _lanes_loop(logpost_lanes, fits, z, prop_chol, lpv, lpb, keys, n_max,
                 samp_size, batch_size, alpha_geweke, record, max_proposals,
                 rr, dim, dtype, dev) -> LanesResult:
@@ -472,7 +490,8 @@ def _lanes_loop(logpost_lanes, fits, z, prop_chol, lpv, lpb, keys, n_max,
             [z, lpb[:, None], lpv[:, None]], dim=1)
         k_rec_d += active_d if every else step
         j += 1
-        acc = accept.cpu().numpy() & active     # the round's one read-back
+        # the round's one read-back
+        acc = trace.readback(accept).numpy() & active
         rec = active if every else acc
         k_rec += rec
         n_acc += acc
@@ -480,17 +499,20 @@ def _lanes_loop(logpost_lanes, fits, z, prop_chol, lpv, lpb, keys, n_max,
         check = np.flatnonzero(rec & (k_rec >= samp_size)
                                & (k_rec % batch_size == 0))
         if check.size:
-            rows = (torch.as_tensor(k_rec[check] - samp_size)[:, None]
-                    + torch.arange(samp_size))
-            windows = P[torch.as_tensor(check, device=dev)[:, None],
-                        rows.to(dev), :dim].cpu()
-            for c, w in zip(check, windows):
-                pv[c] = float(geweke_pvalue(w))
+            with trace.span("geweke"):
+                rows = (torch.as_tensor(k_rec[check] - samp_size)[:, None]
+                        + torch.arange(samp_size))
+                windows = trace.readback(
+                    P[torch.as_tensor(check, device=dev)[:, None],
+                      rows.to(dev), :dim])
+                for c, w in zip(check, windows):
+                    pv[c] = float(geweke_pvalue(w))
         stop = active & ~((k_rec < n_max) & (pv < alpha_geweke)
                           & (n_prop < max_proposals))
         if stop.any():
             active &= ~stop
             active_d = torch.as_tensor(active, device=dev)
+    trace.count("rounds.kept", int(n_prop.sum()))
     recorded = (torch.arange(n_max, device=dev)[None, :]
                 < torch.as_tensor(k_rec, device=dev)[:, None])
     return LanesResult(

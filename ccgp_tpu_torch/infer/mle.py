@@ -23,6 +23,7 @@ from ccgp_tpu_torch.ops import linalg, rng
 from ccgp_tpu_torch.ops.chol import chol_quadratics, profile_nll_from_quadratics
 from ccgp_tpu_torch.ops.gp import gls_beta, profile_nll, sigma2_mle
 from ccgp_tpu_torch.ops.kernels import KernelFamily
+from ccgp_tpu_torch.utils import trace
 
 
 class KrigingMLE(NamedTuple):
@@ -33,6 +34,7 @@ class KrigingMLE(NamedTuple):
     chol: torch.Tensor      # Cholesky of the optimal Gram
 
 
+@trace.span("plugin")
 def kriging_mle(family: KernelFamily, x: torch.Tensor, y: torch.Tensor,
                 key: torch.Tensor, ard: bool = False, n_starts: int = 8,
                 log_theta_low: float = -7.0, log_theta_high: float = 7.0,
@@ -77,6 +79,7 @@ def kriging_mle(family: KernelFamily, x: torch.Tensor, y: torch.Tensor,
                       chol=chol)
 
 
+@trace.span("plugin")
 def kriging_mle_grid(family: KernelFamily, x: torch.Tensor, y: torch.Tensor,
                      log_theta_low: float = -5.0, log_theta_high: float = 6.0,
                      n_grid: int = 32, jitter: float = 1e-10) -> KrigingMLE:
@@ -97,7 +100,7 @@ def kriging_mle_grid(family: KernelFamily, x: torch.Tensor, y: torch.Tensor,
         inf = torch.full_like(nlls, math.inf)
         nlls = torch.where(off_max < 1.0 - 1e-6, nlls, inf)
         nlls = torch.where(torch.isfinite(nlls), nlls, inf)
-        i = int(torch.clamp(torch.argmin(nlls), 1, m - 2))
+        i = int(trace.readback(torch.clamp(torch.argmin(nlls), 1, m - 2)))
         f0, f1, f2 = nlls[i - 1], nlls[i], nlls[i + 1]
         h = mg[1] - mg[0]
         denom = f0 - 2.0 * f1 + f2

@@ -22,15 +22,17 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ccgp_tpu_torch.utils import transforms
+from ccgp_tpu_torch.utils import trace, transforms
 
 
 def _value_and_grad(fn, x: torch.Tensor):
-    """Guarded value and gradient of fn at x (both detached)."""
+    """Guarded value and gradient of fn at x (both detached); counts
+    `bfgs.evals`."""
+    trace.count("bfgs.evals")
     x = x.detach().requires_grad_(True)
     with torch.enable_grad():
         v = fn(x)
-        if bool(torch.isfinite(v)):
+        if bool(trace.readback(torch.isfinite(v))):
             (g,) = torch.autograd.grad(v, x)
             g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
             return v.detach(), g.detach()
@@ -83,14 +85,15 @@ def _zoom(restricted, wolfe_one, wolfe_two, a_lo, phi_lo, dphi_lo, a_hi,
         b = torch.maximum(a_hi, a_lo)
         cchk = delta1 * dalpha
         qchk = delta2 * dalpha
-        failed = failed or bool(dalpha <= threshold)
+        failed = failed or bool(trace.readback(dalpha <= threshold))
         a_j_cubic = _cubicmin(a_lo, phi_lo, dphi_lo, a_hi, phi_hi, a_rec,
                               phi_rec)
-        use_cubic = (j > 0 and bool(a_j_cubic > a + cchk)
-                     and bool(a_j_cubic < b - cchk))
+        use_cubic = (j > 0 and bool(trace.readback(a_j_cubic > a + cchk))
+                     and bool(trace.readback(a_j_cubic < b - cchk)))
         a_j_quad = _quadmin(a_lo, phi_lo, dphi_lo, a_hi, phi_hi)
-        use_quad = (not use_cubic and bool(a_j_quad > a + qchk)
-                    and bool(a_j_quad < b - qchk))
+        use_quad = (not use_cubic
+                    and bool(trace.readback(a_j_quad > a + qchk))
+                    and bool(trace.readback(a_j_quad < b - qchk)))
         if use_cubic:
             a_j = a_j_cubic
         elif use_quad:
@@ -98,10 +101,11 @@ def _zoom(restricted, wolfe_one, wolfe_two, a_lo, phi_lo, dphi_lo, a_hi,
         else:
             a_j = (a_lo + a_hi) / 2.0
         phi_j, dphi_j, g_j = restricted(a_j)
-        hi_to_j = bool(wolfe_one(a_j, phi_j)) or bool(phi_j >= phi_lo)
-        star_to_j = bool(wolfe_two(dphi_j)) and not hi_to_j
-        hi_to_lo = (bool(dphi_j * (a_hi - a_lo) >= 0.0) and not hi_to_j
-                    and not star_to_j)
+        hi_to_j = (bool(trace.readback(wolfe_one(a_j, phi_j)))
+                   or bool(trace.readback(phi_j >= phi_lo)))
+        star_to_j = bool(trace.readback(wolfe_two(dphi_j))) and not hi_to_j
+        hi_to_lo = (bool(trace.readback(dphi_j * (a_hi - a_lo) >= 0.0))
+                    and not hi_to_j and not star_to_j)
         lo_to_j = not hi_to_j and not star_to_j
         if hi_to_j:
             a_rec, phi_rec = a_hi, phi_hi
@@ -156,10 +160,11 @@ def line_search(vg, xk, pk, old_fval, old_old_fval, gfk, c1=1e-4, c2=0.9,
     while not done and i <= maxiter and not failed:
         a_i = start_value if i == 1 else a_i1 * 2.0
         phi_i, dphi_i, g_i = restricted(a_i)
-        to_zoom1 = (bool(wolfe_one(a_i, phi_i))
-                    or (bool(phi_i >= phi_i1) and i > 1))
-        to_i = bool(wolfe_two(dphi_i)) and not to_zoom1
-        to_zoom2 = bool(dphi_i >= 0.0) and not to_zoom1 and not to_i
+        to_zoom1 = (bool(trace.readback(wolfe_one(a_i, phi_i)))
+                    or (bool(trace.readback(phi_i >= phi_i1)) and i > 1))
+        to_i = bool(trace.readback(wolfe_two(dphi_i))) and not to_zoom1
+        to_zoom2 = (bool(trace.readback(dphi_i >= 0.0)) and not to_zoom1
+                    and not to_i)
         if to_zoom1:
             z = _zoom(restricted, wolfe_one, wolfe_two, a_i1, phi_i1,
                       dphi_i1, a_i, phi_i, dphi_i, gfk)
@@ -178,16 +183,21 @@ def line_search(vg, xk, pk, old_fval, old_old_fval, gfk, c1=1e-4, c2=0.9,
         i += 1
         a_i1, phi_i1, dphi_i1 = a_i, phi_i, dphi_i
     alpha_k = a_star
-    if torch.finfo(alpha_k.dtype).bits != 64 and bool(torch.abs(alpha_k) < 1e-8):
+    if (torch.finfo(alpha_k.dtype).bits != 64
+            and bool(trace.readback(torch.abs(alpha_k) < 1e-8))):
         alpha_k = torch.sign(alpha_k) * 1e-8
     return _LineSearch(failed or not done, alpha_k, phi_star, g_star)
 
 
+@trace.span("bfgs")
 def minimize_bfgs(fn, x0: torch.Tensor, maxiter: int = 100,
                   gtol: float = 1e-5, line_search_maxiter: int = 10):
     """Unconstrained BFGS on the guarded objective; returns (x, fun) as
     `jax.scipy.optimize.minimize(..., method="BFGS")` does (fun is the
-    line search's value at x, which may be the guard's 1e10)."""
+    line search's value at x, which may be the guard's 1e10). Runs as the
+    span `bfgs`, counting one of `bfgs.stop.converged`,
+    `bfgs.stop.line_search` (its line search gave up) and
+    `bfgs.stop.maxiter`."""
     x = x0.detach()
     d = x.shape[0]
     eye = torch.eye(d, dtype=x.dtype, device=x.device)
@@ -197,7 +207,7 @@ def minimize_bfgs(fn, x0: torch.Tensor, maxiter: int = 100,
 
     f, g = vg(x)
     H = eye
-    converged = bool(torch.max(torch.abs(g)) < gtol)
+    converged = bool(trace.readback(torch.max(torch.abs(g)) < gtol))
     failed = False
     k = 0
     old_old_fval = f + torch.linalg.vector_norm(g) / 2
@@ -213,10 +223,13 @@ def minimize_bfgs(fn, x0: torch.Tensor, maxiter: int = 100,
         w = eye - rho * (s[:, None] * y[None, :])
         H_new = w @ H @ w.T + rho * s[:, None] * s[None, :]
         H = torch.where(torch.isfinite(rho), H_new, H)
-        converged = bool(torch.max(torch.abs(ls.g_k)) < gtol)
+        converged = bool(trace.readback(torch.max(torch.abs(ls.g_k))
+                                        < gtol))
         k += 1
         old_old_fval = f
         x, f, g = x_new, ls.f_k, ls.g_k
+    trace.count("bfgs.stop." + ("converged" if converged else
+                                "line_search" if failed else "maxiter"))
     return x, f
 
 
@@ -259,5 +272,5 @@ def multistart_minimize(fn, starts: torch.Tensor,
         xs = transforms.tanh_box(xs, lower, upper)
     funs = torch.where(torch.isfinite(funs), funs,
                        torch.full_like(funs, float("inf")))
-    best = int(torch.argmin(funs))
+    best = int(trace.readback(torch.argmin(funs)))
     return MultistartResult(x=xs[best], fun=funs[best], xs=xs, funs=funs)

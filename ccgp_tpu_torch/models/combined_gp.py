@@ -28,7 +28,8 @@ the rounds loop over the whitened batched log-posterior and
 `build_factors` rebuilds the cache (the lanes factor kernel K4 from 64
 draws on).
 Both entry points run on the GPU unless device="cpu" is asked for, and
-move their inputs there.
+move their inputs there. Each call is one request record of the tracer
+(`utils.trace`): the span `fit` or `predict`.
 """
 from __future__ import annotations
 
@@ -52,6 +53,7 @@ from ccgp_tpu_torch.predict.factors import (
 from ccgp_tpu_torch.predict.posterior import (
     PosteriorPrediction, posterior_predict, predictive_moments,
     predictive_moments_lazy)
+from ccgp_tpu_torch.utils import trace
 from ccgp_tpu_torch.utils.device import move, resolve
 
 # routes SE/SE speculative sampling through the chunked driver (the fused
@@ -91,6 +93,7 @@ class CombinedGPFit(NamedTuple):
     jitter: Optional[torch.Tensor] = None
 
 
+@trace.span("fit")
 def fit_combined_gp(
     spec: MixtureSpec,
     x: torch.Tensor,
@@ -198,6 +201,7 @@ def fit_combined_gp(
                                              device=x.device))
 
 
+@trace.span("predict")
 def predict_combined_gp(
     spec: MixtureSpec,
     fit: CombinedGPFit,

@@ -13,8 +13,10 @@ import torch
 from ccgp_tpu_torch.models.combination import (
     MixParams, MixtureSpec, mixed_gram, unpack)
 from ccgp_tpu_torch.ops import chol_lanes, linalg
+from ccgp_tpu_torch.utils import trace
 
 
+@trace.span("factors")
 def decode_stash(fac: torch.Tensor, n: int):
     """Decode sampler-stashed factor rows (m, n+2, n) into (chol, wy, wo):
     row j holds L[i, j] at column i >= j, so the factor is the tril of the
@@ -31,6 +33,7 @@ class FactorCache(NamedTuple):
     params: MixParams     # batched constrained parameters (leading dim m)
 
 
+@trace.span("factors")
 def build_factors(spec: MixtureSpec, x: torch.Tensor, y: torch.Tensor,
                   zs: torch.Tensor, betas: torch.Tensor,
                   jitter=0.0) -> FactorCache:

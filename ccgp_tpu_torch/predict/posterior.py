@@ -6,6 +6,8 @@ Per draw (`1D Codes and Designs/1D Combined GP Public.R:794-812`):
     var  = sigma2 (1 - r' R^-1 r + (1 - 1'R^-1 r)^2 / 1'R^-1 1)
 then one normal draw per posterior sample, the mean of the per-draw means,
 and type-7 quantiles of the draws; negative-variance draws are masked out.
+The moments run as the span `moments`, the intervals as `intervals` with
+their normal draws as `draws` inside (`utils.trace`).
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from ccgp_tpu_torch.models.combination import (
     MixtureSpec, mix_weights, mixed_cross)
 from ccgp_tpu_torch.ops import linalg, rng
 from ccgp_tpu_torch.predict.factors import FactorCache, build_factors
-from ccgp_tpu_torch.utils import stats
+from ccgp_tpu_torch.utils import stats, trace
 
 
 class PosteriorPrediction(NamedTuple):
@@ -29,6 +31,7 @@ class PosteriorPrediction(NamedTuple):
     draw_var: torch.Tensor    # (m, t) per-draw predictive variances
 
 
+@trace.span("moments")
 def predictive_moments(spec: MixtureSpec, cache: FactorCache,
                        x: torch.Tensor, x_new: torch.Tensor, sigma2,
                        var_scale: str = "sigma2",
@@ -102,6 +105,7 @@ def predictive_moments_lazy(spec: MixtureSpec, x: torch.Tensor,
     return torch.cat(means)[:m], torch.cat(variances)[:m]
 
 
+@trace.span("intervals")
 def posterior_predict(key: torch.Tensor, draw_mean: torch.Tensor,
                       draw_var: torch.Tensor, alpha: float = 0.05,
                       quant_ref: Optional[torch.Tensor] = None,
@@ -111,8 +115,9 @@ def posterior_predict(key: torch.Tensor, draw_mean: torch.Tensor,
     valid = (draw_var >= 0.0 if drop_negative_var
              else torch.ones_like(draw_var, dtype=torch.bool))
     sd = torch.sqrt(torch.clamp_min(draw_var, 0.0))
-    eps = rng.normal(key.to(draw_mean.device), tuple(draw_mean.shape),
-                     draw_mean.dtype)
+    with trace.span("draws"):
+        eps = rng.normal(key.to(draw_mean.device), tuple(draw_mean.shape),
+                         draw_mean.dtype)
     pp = draw_mean + sd * eps                                # (m, t)
     mu0 = stats.masked_mean(draw_mean.T, valid.T)            # (t,)
     ref = mu0 if quant_ref is None else quant_ref

@@ -2,8 +2,9 @@
 
 The reference wraps its slow loops in a text progress bar (`apply_pb`,
 `1D Codes and Designs/1D Combined GP Public.R:36-53`). Here: a host-side
-progress bar for sweeps over studies, a wall-clock stage timer, and a
-`torch.profiler` trace around a block (JAX's `jax_trace`).
+progress bar for sweeps over studies, a stage timer on the tracer's spans
+(`utils.trace`), and a `torch.profiler` trace around a block (JAX's
+`jax_trace`).
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import contextlib
 import sys
 import time
 from typing import Iterable, Iterator, Optional
+
+from ccgp_tpu_torch.utils import trace
 
 
 def progress(it: Iterable, total: Optional[int] = None, width: int = 40,
@@ -31,13 +34,14 @@ def progress(it: Iterable, total: Optional[int] = None, width: int = 40,
 
 @contextlib.contextmanager
 def stage_timer(name: str, sink: Optional[dict] = None, stream=sys.stderr):
-    """Wall-clock a pipeline stage; add the seconds into `sink[name]` if
-    a sink is given, else write the milliseconds to `stream`. The clock is
-    the host's: synchronize the device inside the block to time its
-    work."""
-    t0 = time.perf_counter()
-    yield
-    dt = time.perf_counter() - t0
+    """Wall-clock a pipeline stage as the span `name` (`utils.trace`, so
+    it lands in the current request's record too); add the seconds into
+    `sink[name]` if a sink is given, else write the milliseconds to
+    `stream`. The clock is the host's: synchronize the device inside the
+    block to time its work."""
+    with trace.span(name) as sp:
+        yield
+    dt = sp.seconds
     if sink is not None:
         sink[name] = sink.get(name, 0.0) + dt
     else:
