@@ -26,7 +26,7 @@ from ccgp_tpu_torch.ops import linalg
 
 def _score(r: torch.Tensor, criterion: str, jitter) -> torch.Tensor:
     """-det r or -log det r, +inf where it is not finite."""
-    inf = torch.tensor(math.inf, dtype=r.dtype, device=r.device)
+    inf = torch.full((), math.inf, dtype=r.dtype, device=r.device)
     if criterion == "det":
         det = -torch.linalg.det(r)
         return torch.where(torch.isfinite(det), det, inf)

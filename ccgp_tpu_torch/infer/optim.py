@@ -14,30 +14,137 @@ the same outcome.
 The objective is guarded as `_guard` does in JAX: a non-finite value
 becomes 1e10 with a zero gradient, and non-finite gradient entries are
 zeroed, so a line search that wanders into singular-Gram territory does
-not poison the BFGS state.
+not poison the BFGS state. The guard has no branch, so an evaluation
+never waits on the device.
+
+JAX jits the whole search; here the line search runs on the host, and on
+a CUDA device each search replays its evaluation as one CUDA graph
+(`_Evaluator`): the objective's forward, its gradient and the guard, a
+few hundred launches of fixed shapes, captured once per search.
 """
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Optional
 
 import torch
 
 from ccgp_tpu_torch.utils import trace, transforms
 
+# CUDA evaluations replay a graph; the card tests turn this off to hold
+# the graphed search to the eager one
+_CUDA_GRAPHS = True
+
+# a side stream per (thread, device), kept from search to search: cuBLAS
+# holds a workspace per stream, and the shard threads of `parallel/`
+# capture on streams of their own
+_side = threading.local()
+
+
+def _guard(v: torch.Tensor, g: torch.Tensor):
+    """(v, g) as the search sees them: 1e10 and a zero gradient where v is
+    not finite, else v and g with its non-finite entries zeroed."""
+    ok = torch.isfinite(v)
+    return (torch.where(ok, v, torch.full_like(v, 1e10)),
+            torch.where(ok & torch.isfinite(g), g, torch.zeros_like(g)))
+
 
 def _value_and_grad(fn, x: torch.Tensor):
-    """Guarded value and gradient of fn at x (both detached); counts
-    `bfgs.evals`."""
-    trace.count("bfgs.evals")
+    """Guarded value and gradient of fn at x (both detached). The gradient
+    is taken whatever the value, and the guard masks it."""
     x = x.detach().requires_grad_(True)
     with torch.enable_grad():
         v = fn(x)
-        if bool(trace.readback(torch.isfinite(v))):
-            (g,) = torch.autograd.grad(v, x)
-            g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
-            return v.detach(), g.detach()
-    return (torch.full_like(v.detach(), 1e10),
-            torch.zeros_like(x.detach()))
+        (g,) = torch.autograd.grad(v, x)
+    return _guard(v.detach(), g)
+
+
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    """This thread's side stream on a CUDA device."""
+    streams = getattr(_side, "streams", None)
+    if streams is None:
+        streams = _side.streams = {}
+    stream = streams.get(device.index)
+    if stream is None:
+        stream = streams[device.index] = torch.cuda.Stream(device)
+    return stream
+
+
+class _Evaluator:
+    """The guarded value and gradient of one objective, for the searches
+    that share it (a multistart's starts), as a context manager that
+    releases its graph on exit. Counts `bfgs.evals` per evaluation.
+
+    On a CPU tensor every evaluation is `_value_and_grad`. On a CUDA
+    tensor the first runs eagerly on a side stream (the warm-up a capture
+    needs; its result is the first value), the second captures the
+    evaluation as one CUDA graph on that stream (`bfgs.graph.captures`),
+    and from the second on each copies its point into the graph's static
+    input, replays the graph on the current stream and clones the value
+    and gradient out, since the line search keeps values the next replay
+    overwrites (`bfgs.graph.replays`). The graph allocates from a memory
+    pool of its own, which goes back to the device with the graph on exit
+    (a pool shared by the searches of a thread cannot be: PyTorch 2.11's
+    pinned-host allocator refuses a pool id again once its graphs are
+    reset). An op that refuses capture raises."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.warmed = False
+        self.graph = self.pool = self.x = self.out = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self.graph is not None:
+            self.graph.reset()
+        # the pool last: dropping it returns its memory to the device
+        self.graph = self.x = self.out = None
+        self.pool = None
+        return False
+
+    def __call__(self, z: torch.Tensor):
+        trace.count("bfgs.evals")
+        if not (z.is_cuda and _CUDA_GRAPHS):
+            return _value_and_grad(self.fn, z)
+        if not self.warmed:
+            self.warmed = True
+            return self._on_side_stream(lambda: _value_and_grad(self.fn, z),
+                                        z.device)
+        if self.graph is None:
+            self._capture(z)
+        self.x.copy_(z)
+        self.graph.replay()
+        trace.count("bfgs.graph.replays")
+        return self.out[0].clone(), self.out[1].clone()
+
+    @staticmethod
+    def _on_side_stream(work, device):
+        stream = _side_stream(device)
+        here = torch.cuda.current_stream(device)
+        stream.wait_stream(here)
+        with torch.cuda.stream(stream):
+            out = work()
+        here.wait_stream(stream)
+        return out
+
+    def _capture(self, z: torch.Tensor):
+        with torch.cuda.device(z.device):
+            self.pool = torch.cuda.MemPool()
+        self.x = torch.empty_like(z)
+        self.graph = torch.cuda.CUDAGraph()
+
+        def capture():
+            self.graph.capture_begin(pool=self.pool.id,
+                                     capture_error_mode="thread_local")
+            try:
+                return _value_and_grad(self.fn, self.x)
+            finally:
+                self.graph.capture_end()
+
+        self.out = self._on_side_stream(capture, z.device)
+        trace.count("bfgs.graph.captures")
 
 
 def _cubicmin(a, fa, fpa, b, fb, c, fc):
@@ -189,7 +296,6 @@ def line_search(vg, xk, pk, old_fval, old_old_fval, gfk, c1=1e-4, c2=0.9,
     return _LineSearch(failed or not done, alpha_k, phi_star, g_star)
 
 
-@trace.span("bfgs")
 def minimize_bfgs(fn, x0: torch.Tensor, maxiter: int = 100,
                   gtol: float = 1e-5, line_search_maxiter: int = 10):
     """Unconstrained BFGS on the guarded objective; returns (x, fun) as
@@ -198,13 +304,17 @@ def minimize_bfgs(fn, x0: torch.Tensor, maxiter: int = 100,
     span `bfgs`, counting one of `bfgs.stop.converged`,
     `bfgs.stop.line_search` (its line search gave up) and
     `bfgs.stop.maxiter`."""
+    with _Evaluator(fn) as vg:
+        return _bfgs(vg, x0, maxiter, gtol, line_search_maxiter)
+
+
+@trace.span("bfgs")
+def _bfgs(vg, x0: torch.Tensor, maxiter: int = 100, gtol: float = 1e-5,
+          line_search_maxiter: int = 10):
+    """`minimize_bfgs` on an evaluator vg(x) -> (value, gradient)."""
     x = x0.detach()
     d = x.shape[0]
     eye = torch.eye(d, dtype=x.dtype, device=x.device)
-
-    def vg(z):
-        return _value_and_grad(fn, z)
-
     f, g = vg(x)
     H = eye
     converged = bool(trace.readback(torch.max(torch.abs(g)) < gtol))
@@ -265,7 +375,8 @@ def multistart_minimize(fn, starts: torch.Tensor,
     else:
         obj = fn
         z0 = starts
-    xs = torch.stack([minimize_bfgs(obj, z, maxiter)[0] for z in z0])
+    with _Evaluator(obj) as vg:      # one capture serves every start
+        xs = torch.stack([_bfgs(vg, z, maxiter)[0] for z in z0])
     with torch.no_grad():
         funs = torch.stack([obj(u) for u in xs])
     if bounded:

@@ -18,8 +18,12 @@ def _weighted(x: torch.Tensor, theta) -> torch.Tensor:
 
     theta is a 0-d rate, or rates of shape (..., d) or (..., 1) whose
     leading axes are a batch (`vmap` in the JAX package): the result is
-    then (..., n, d)."""
-    theta = torch.as_tensor(theta, dtype=x.dtype, device=x.device)
+    then (..., n, d). A number becomes a tensor by a fill on x's device,
+    not a copy from the host, so a CUDA graph can capture it."""
+    if isinstance(theta, (int, float)):
+        theta = torch.full((), theta, dtype=x.dtype, device=x.device)
+    else:
+        theta = torch.as_tensor(theta, dtype=x.dtype, device=x.device)
     if theta.ndim == 0:
         return x * torch.sqrt(theta)
     return x * torch.sqrt(theta).unsqueeze(-2)

@@ -15,8 +15,10 @@ import torch
 def sigmoid(phi: torch.Tensor) -> torch.Tensor:
     """1 / (1 + exp(-phi)), the logistic as XLA lowers it. The 1 is a
     tensor on phi's device: PyTorch computes a Python scalar over a tensor
-    as a reciprocal times the scalar, and the fused rounds kernel divides."""
-    one = torch.tensor(1.0, dtype=phi.dtype, device=phi.device)
+    as a reciprocal times the scalar, and the fused rounds kernel divides.
+    It is filled on the device, not copied from the host, so a CUDA graph
+    can capture it."""
+    one = torch.ones((), dtype=phi.dtype, device=phi.device)
     return one / (1.0 + torch.exp(-phi))
 
 

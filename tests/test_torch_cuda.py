@@ -27,7 +27,9 @@ bit against its plain version and L single launches; the lane-batched
 sampler and a small sweep against the CPU (equal chains, 1e-8: the
 card's erfinv parts from the CPU's by ulps), HMC over a short run (1e-8),
 the dry run on the card four times over (1e-4, JAX's guard) and the
-flagship forward in f64 (1e-10).
+flagship forward in f64 (1e-10). BFGS's evaluation replayed as a CUDA
+graph is held bit for bit to the eager evaluation on three searches (the
+same point, value, evaluations and stop), and its graphs are released.
 """
 import ctypes
 
@@ -1235,3 +1237,156 @@ def test_trace_spans_on_the_profilers_clock(cuda):
     outside = [(a, b, label) for a, b, label in zip(starts, ends, labels_of)
                if a < -5_000 or b > 5_000]
     assert not outside, outside[:10]
+
+
+# --- BFGS's evaluation as one CUDA graph per search ------------------------
+
+def _f2(x):
+    """The paper's 2-D test function (`benchmark/functions/f2.py`)."""
+    a, b = x[:, 0], x[:, 1]
+    return (((a - 0.2) ** 2 - (b - 0.7) ** 2)
+            * torch.exp(-5 * ((a - 0.8) ** 2 + (b - 0.1) ** 2))
+            * torch.cos(10 * (a - 0.5) * b))
+
+
+def _bench_logpost(dev, seed=0):
+    """The bench configuration's log-posterior: 100 uniform points, f2, f32,
+    anisotropic SE x SE with a tied rough rate, its priors, jitter 1e-3 and
+    the grid plug-in's sigma2."""
+    from ccgp_tpu_torch.infer.mle import kriging_mle_grid
+    from ccgp_tpu_torch.models.likelihood import make_logpost
+
+    r = np.random.default_rng(seed)
+    x = torch.tensor(r.uniform(size=(100, 2)), dtype=torch.float32,
+                     device=dev)
+    y = _f2(x)
+    spec = MixtureSpec(kernels.sqexp_family(), kernels.sqexp_family(),
+                       dim=2, rough="tied", anisotropic=True)
+    s2 = kriging_mle_grid(kernels.sqexp_family(), x, y, jitter=1e-3).sigma2
+    return make_logpost(spec, x, y, s2, theta1_prior=LogNormal(-1.0, 1.0),
+                        theta2_prior=InverseGamma(3, 4), jitter=1e-3)
+
+
+def _counted(search):
+    """search() as one request of the program's tracer: its result and
+    the request's counters summed over its paths."""
+    import collections
+
+    from ccgp_tpu_torch.utils import trace
+
+    trace.clear()
+    with trace.span("fit"):
+        out = search()
+    counts = collections.Counter()
+    for c in trace.last()["counts"].values():
+        counts.update(c)
+    trace.clear()
+    return out, counts
+
+
+def _graphed_and_eager(search, monkeypatch, captures):
+    """The search with the graphed evaluator, then with the eager one (the
+    module's private switch): the same result bit for bit, the same
+    evaluations and stops; `captures` graphs captured, and every
+    evaluation but the first replayed."""
+    from ccgp_tpu_torch.infer import optim
+
+    got, cg = _counted(search)
+    with monkeypatch.context() as m:
+        m.setattr(optim, "_CUDA_GRAPHS", False)
+        ref, ce = _counted(search)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and a.device == b.device
+        assert torch.equal(_bits(a), _bits(b))
+    stops = {k: v for k, v in ce.items() if k.startswith("bfgs.stop.")}
+    assert {k: v for k, v in cg.items() if k.startswith("bfgs.stop.")} \
+        == stops
+    assert cg["bfgs.evals"] == ce["bfgs.evals"] >= 2
+    assert cg["bfgs.graph.captures"] == captures
+    assert cg["bfgs.graph.replays"] == cg["bfgs.evals"] - captures
+    assert "bfgs.graph.captures" not in ce and "bfgs.graph.replays" not in ce
+    return got, cg
+
+
+def test_bfgs_graph_bench_laplace_bit_equal(cuda, monkeypatch):
+    """Laplace's search at the bench configuration (f32, n = 100): the
+    graphed search equals the eager one bit for bit, one capture."""
+    from ccgp_tpu_torch.infer import optim
+
+    lp = _bench_logpost(cuda)
+    start = torch.tensor([1.0, 1.0, 0.0, 0.0], dtype=torch.float32,
+                         device=cuda)
+    _graphed_and_eager(
+        lambda: optim.minimize_bfgs(lambda z: -lp(z).val, start),
+        monkeypatch, captures=1)
+
+
+def test_bfgs_graph_gv_plugin_bit_equal(cuda, monkeypatch):
+    """`kriging_mle` on the first ground-vibrations split of the benchmark
+    (f64, d = 9, n = 50, 8 starts): the multistart shares one capture."""
+    import json
+    from pathlib import Path
+
+    from ccgp_tpu_torch.infer.mle import kriging_mle
+
+    data = json.loads((Path(__file__).resolve().parents[1] / "benchmark"
+                       / "data" / "gv_size50_splits.json").read_text())
+    pts = torch.tensor(data["points"], dtype=torch.float64, device=cuda)
+    train = pts[data["splits"][0]["train"]]
+    x, y = train[:, :9], train[:, 9]
+    key = rng.split(rng.PRNGKey(7, device=cuda), 2)[0]
+
+    def search():
+        m = kriging_mle(kernels.sqexp_family(), x, y, key)
+        return m.theta, m.nll, m.sigma2
+
+    _graphed_and_eager(search, monkeypatch, captures=1)
+
+
+def test_bfgs_graph_guard_path_bit_equal(cuda, monkeypatch):
+    """A search whose line search reaches singular Grams (the per-axis
+    profile NLL of 30 points, f64, no jitter, heading for long length
+    scales): the guard's 1e10 and zero gradient come out of the graph as
+    they do eagerly."""
+    from ccgp_tpu_torch.infer import optim
+    from ccgp_tpu_torch.ops import linalg
+    from ccgp_tpu_torch.ops.gp import profile_nll
+
+    r = np.random.default_rng(0)
+    x = torch.tensor(r.uniform(size=(30, 2)), dtype=torch.float64,
+                     device=cuda)
+    y = x[:, 0] + 0.5 * x[:, 1]
+    values = []
+
+    def nll(lt):
+        g = kernels.sqexp_family().gram(x, torch.exp(lt))
+        v = profile_nll(linalg.jitter_cholesky(g, 0.0), y)
+        values.append(v)
+        return v
+
+    start = torch.tensor([2.0, 2.5], dtype=torch.float64, device=cuda)
+    _graphed_and_eager(lambda: optim.minimize_bfgs(nll, start),
+                       monkeypatch, captures=1)
+    # the eager run evaluated every point: some of them were singular
+    eager = values[2:]
+    assert not all(bool(torch.isfinite(v)) for v in eager)
+
+
+def test_bfgs_graphs_are_released(cuda):
+    """Twenty Laplace fits in a row: the device memory reserved after the
+    first does not grow, so each search's graph is released and its pool's
+    memory serves the next capture."""
+    from ccgp_tpu_torch.infer.laplace import laplace
+
+    lp = _bench_logpost(cuda)
+    start = torch.tensor([1.0, 1.0, 0.0, 0.0], dtype=torch.float32,
+                         device=cuda)
+    fits = [laplace(lambda z: lp(z).val, start)]
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    for _ in range(19):
+        fits.append(laplace(lambda z: lp(z).val, start))
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_reserved() == reserved
+    for f in fits[1:]:
+        assert torch.equal(f.mode, fits[0].mode)

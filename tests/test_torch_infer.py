@@ -21,6 +21,7 @@ from ccgp_tpu.models import InverseGamma as JIG, LogNormal as JLN
 from ccgp_tpu.models import MixtureSpec as JSpec, make_logpost as jlogpost
 from ccgp_tpu.ops import kernels as jkern
 from ccgp_tpu_torch.infer import geweke as tgew
+from ccgp_tpu_torch.infer import optim
 from ccgp_tpu_torch.infer.laplace import laplace as tlaplace
 from ccgp_tpu_torch.infer.mle import kriging_mle_grid as tmle
 from ccgp_tpu_torch.infer.optim import minimize_bfgs as tbfgs
@@ -84,6 +85,32 @@ def test_bfgs(fn):
     xt, ft = tbfgs(fn("torch"), t(x0), maxiter=100)
     np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=0, atol=1e-6)
     np.testing.assert_allclose(float(ft), float(fj), rtol=1e-6, atol=1e-10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_guard_without_a_branch(dtype):
+    """The guard that needs no read-back: a non-finite value gives 1e10
+    and a zero gradient, non-finite gradient entries are zeroed, and
+    finite values pass bit for bit."""
+    g = torch.tensor([0.1, -3.7e-5, float("nan"), float("inf"), 2.5],
+                     dtype=dtype)
+    for bad in (float("nan"), float("inf"), -float("inf")):
+        v, gv = optim._guard(torch.tensor(bad, dtype=dtype), g)
+        assert torch.equal(v, torch.tensor(1e10, dtype=dtype))
+        assert torch.equal(gv, torch.zeros_like(g))
+    v0 = torch.tensor(-0.123456789, dtype=dtype)
+    v, gv = optim._guard(v0, g)
+    assert torch.equal(v, v0)
+    assert torch.equal(gv, torch.tensor([0.1, -3.7e-5, 0.0, 0.0, 2.5],
+                                        dtype=dtype))
+    # through the evaluation: the gradient is taken whatever the value
+    x = torch.tensor([0.3, -0.2], dtype=dtype)
+    v, gv = optim._value_and_grad(lambda z: torch.sum(z * z), x)
+    assert torch.equal(v, torch.sum(x * x)) and torch.equal(gv, 2 * x)
+    v, gv = optim._value_and_grad(
+        lambda z: torch.sum(z) + torch.sqrt(z[0] - 1.0), x)    # NaN
+    assert torch.equal(v, torch.tensor(1e10, dtype=dtype))
+    assert torch.equal(gv, torch.zeros_like(x))
 
 
 def test_laplace(problem):

@@ -5,6 +5,8 @@ exception closes its spans, and level 2 keeps a timeline. A small CPU fit
 (the BFGS plug-in, a short chunked chain) carries the paths and counters
 the benchmark's readers read, and its outputs are bit-identical at every
 level."""
+import collections
+import sys
 import threading
 import time
 
@@ -12,7 +14,6 @@ import numpy as np
 import pytest
 import torch
 
-from ccgp_tpu_torch.infer import laplace as laplace_mod
 from ccgp_tpu_torch.infer import optim
 from ccgp_tpu_torch.models.combination import MixtureSpec
 from ccgp_tpu_torch.models.combined_gp import (
@@ -240,8 +241,9 @@ def fit_predict(data, mle_method="bfgs"):
 
 @pytest.fixture(scope="module")
 def runs(data):
-    """The fit at levels 0, 1 and 2 (read-backs counted from the CPU), with
-    the objective of every BFGS run counted at level 1."""
+    """The fit at levels 0, 1 and 2 (read-backs counted from the CPU). At
+    level 1 the BFGS evaluations are counted, and so are the line searches
+    and the read-backs by the function that makes them."""
     mp = pytest.MonkeyPatch()
     out = {}
     try:
@@ -251,20 +253,32 @@ def runs(data):
             trace.clear()
             evals = []
             if level == 1:
-                orig = optim.minimize_bfgs
+                reads = collections.Counter()
+                searches = []
+                vg, ls, rb = (optim._value_and_grad, optim.line_search,
+                              trace.readback)
 
-                def counted(fn, x0, *a, **k):
-                    def f(z):
-                        evals.append(1)
-                        return fn(z)
-                    return orig(f, x0, *a, **k)
+                def counted_vg(fn, x):
+                    evals.append(1)
+                    return vg(fn, x)
 
-                mp.setattr(optim, "minimize_bfgs", counted)
-                mp.setattr(laplace_mod, "minimize_bfgs", counted)
+                def counted_ls(*a, **k):
+                    searches.append(1)
+                    return ls(*a, **k)
+
+                def counted_rb(t):
+                    reads[sys._getframe(1).f_code.co_name] += 1
+                    return rb(t)
+
+                mp.setattr(optim, "_value_and_grad", counted_vg)
+                mp.setattr(optim, "line_search", counted_ls)
+                mp.setattr(trace, "readback", counted_rb)
             fit, pred = fit_predict(data)
             mp.undo()
             out[level] = (fit, pred, trace.requests(), trace.timeline(),
                           len(evals))
+            if level == 1:
+                out["reads"], out["line_searches"] = reads, len(searches)
     finally:
         mp.undo()
         trace.set_level(1)
@@ -305,11 +319,17 @@ def test_fit_record_has_the_readers_paths(runs):
     checks = f["spans"]["sampler/geweke"][0]
     assert checks > 0
     assert f["counts"]["sampler/geweke/readback"]["readbacks"] == checks
-    # every BFGS evaluation reads its guard back; each run its first
-    # convergence test, and each iteration another
+    # no BFGS evaluation reads back (its guard has no branch): each run
+    # reads its first convergence test, each iteration its own test, and
+    # the line search its branches
+    reads, iterations = runs["reads"], runs["line_searches"]
+    assert "_value_and_grad" not in reads and "__call__" not in reads
+    assert iterations > 0
+    assert reads["_bfgs"] == N_STARTS + 1 + iterations
     bfgs_reads = sum(c.get("readbacks", 0) for path, c in f["counts"].items()
                      if path.endswith("bfgs/readback"))
-    assert bfgs_reads > n_evals + N_STARTS + 1
+    assert bfgs_reads == (N_STARTS + 1 + iterations + reads["line_search"]
+                          + reads["_zoom"])
     # the grid plug-in reads back its two argmins; Laplace its two guards
     assert f["counts"]["laplace/readback"]["readbacks"] == 2
 
