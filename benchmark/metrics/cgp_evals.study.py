@@ -1,0 +1,7 @@
+"""The composite GP's bounded BFGS: its guarded value-and-gradient
+evaluations, `bfgs.evals` under `study/cgp`, mean a study."""
+from harness.study_records import mean_counter
+
+
+def read(tr):
+    return mean_counter(tr, "bfgs.evals", "cgp")

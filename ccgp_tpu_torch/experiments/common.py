@@ -19,14 +19,15 @@ import torch
 from ccgp_tpu_torch.eval.compare import (
     ComparisonSummary, ModelPrediction, comparison_summary)
 from ccgp_tpu_torch.infer.diagnostics import effective_sample_size
-from ccgp_tpu_torch.infer.mle import kriging_mle, mlegp_fit
+from ccgp_tpu_torch.infer.mle import KrigingMLE, kriging_mle, mlegp_fit
 from ccgp_tpu_torch.models.combination import MixtureSpec
 from ccgp_tpu_torch.models.combined_gp import (
     CombinedGPFit, MCMCConfig, fit_combined_gp, predict_combined_gp)
-from ccgp_tpu_torch.models.composite_gp import cgp_fit, cgp_predict
+from ccgp_tpu_torch.models.composite_gp import CGPFit, cgp_fit, cgp_predict
 from ccgp_tpu_torch.models.kriging import kriging_predict
 from ccgp_tpu_torch.ops import rng
 from ccgp_tpu_torch.ops.kernels import KernelFamily
+from ccgp_tpu_torch.utils import trace
 from ccgp_tpu_torch.utils.device import move, resolve
 
 
@@ -38,12 +39,18 @@ class StudyResult(NamedTuple):
     # min-over-parameters ESS of the retained window: Geweke convergence
     # alone can hide a random-walk chain that mixes badly
     min_ess: float = float("nan")
+    # the fits the baselines predicted from: the single GP's (with
+    # single_variant="mlegp" also the sigma^2 plug-in) and the composite
+    # GP's; None where the study ran no such model
+    single_fit: Optional[KrigingMLE] = None
+    cgp_fit: Optional[CGPFit] = None
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+@trace.span("study")
 def run_study(
     spec: MixtureSpec,
     x,
@@ -82,7 +89,11 @@ def run_study(
     and sigma2 replaces its plug-in: the fit is skipped when sigma2 is
     given and run_single=False. Else the combined GP takes sigma2, or its
     own plug-in when it is None, and the baseline is `single_fit` or
-    `kriging_mle`'s (ARD with mle_ard=True)."""
+    `kriging_mle`'s (ARD with mle_ard=True).
+
+    A study is one tracer record, the span `study`: the fits' and
+    predictions' spans nest under it, the single GP's prediction as
+    `single`."""
     if on_unconverged not in ("warn", "raise", "ignore"):
         raise ValueError(on_unconverged)
     dev = resolve(device)
@@ -126,17 +137,21 @@ def run_study(
         if kfit is None:
             kfit = kriging_mle(fam, x, y, k_single, ard=mle_ard,
                                jitter=jitter)
-        kpred = kriging_predict(fam, x, y, kfit, x_new, alpha=alpha,
-                                variant="mlegp" if mlegp else "reference")
+        with trace.span("single"):
+            kpred = kriging_predict(
+                fam, x, y, kfit, x_new, alpha=alpha,
+                variant="mlegp" if mlegp else "reference")
         predictions["single"] = ModelPrediction(
             _np(kpred.mean), _np(kpred.lower), _np(kpred.upper))
+    cfit = None
     if run_cgp:
-        cpred = cgp_predict(cgp_fit(x, y, k_cgp, n_candidates=cgp_candidates),
-                            x_new)
+        cfit = cgp_fit(x, y, k_cgp, n_candidates=cgp_candidates)
+        cpred = cgp_predict(cfit, x_new)
         predictions["cgp"] = ModelPrediction(
             _np(cpred.mean), _np(cpred.lower), _np(cpred.upper))
 
     summary = comparison_summary(np.asarray(y_true), predictions)
     min_ess = float(torch.min(effective_sample_size(fit.zs[None])))
     return StudyResult(summary=summary, fit=fit, predictions=predictions,
-                       y_true=np.asarray(y_true), min_ess=min_ess)
+                       y_true=np.asarray(y_true), min_ess=min_ess,
+                       single_fit=kfit, cgp_fit=cfit)

@@ -128,6 +128,7 @@ MLEGP_N_RANDOM = 12
 MLEGP_MAXITER = 300
 
 
+@trace.span("mlegp")
 def mlegp_fit(family: KernelFamily, x: torch.Tensor, y: torch.Tensor,
               key: torch.Tensor | None = None, jitter: float = 1e-10,
               n_random: int = MLEGP_N_RANDOM, maxiter: int = MLEGP_MAXITER,
@@ -140,7 +141,8 @@ def mlegp_fit(family: KernelFamily, x: torch.Tensor, y: torch.Tensor,
     +4, -4 of its log rate; then n_random Gaussian starts around the
     first, scaled 0.5, 1, 2 in turn (`rng.normal(key)`, key PRNGKey(0)
     when None); all clipped to the box [log_theta_low, log_theta_high]
-    and refined by box-constrained BFGS, maxiter iterations each."""
+    and refined by box-constrained BFGS, maxiter iterations each. Runs as
+    the span `mlegp`, counting its starts as `mlegp.starts`."""
     n, d = x.shape[-2], x.shape[-1]
     dt, dev = x.dtype, x.device
     eye = torch.eye(n, dtype=dt, device=dev)
@@ -168,6 +170,7 @@ def mlegp_fit(family: KernelFamily, x: torch.Tensor, y: torch.Tensor,
                               dtype=dt, device=dev)[:n_random, None]
         starts.extend(base[None, :] + scales * noise)
     lo, hi = log_theta_low, log_theta_high
+    trace.count("mlegp.starts", len(starts))
     res = multistart_minimize(
         nll_of_logtheta, torch.clamp(torch.stack(starts), lo, hi),
         lower=torch.full((d,), lo, dtype=dt, device=dev),

@@ -17,6 +17,10 @@ RMSCV; NaN without it) and the predictor
 with local-variance weighting and +/-1.96 sigma intervals. Every helper
 takes leading batch axes. A failed factorization is NaN
 (`linalg.jitter_cholesky`), and a non-finite objective scores 1e6.
+
+The fit runs as the span `cgp`: `cgp/candidates` (counting
+`cgp.candidates`), the searches' `cgp/bfgs` and `cgp/jackknife` (counting
+`cgp.jackknife_refits`); the predictor as `cgp_predict`.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ import torch
 from ccgp_tpu_torch.infer.optim import multistart_minimize
 from ccgp_tpu_torch.ops import linalg, rng
 from ccgp_tpu_torch.ops.distance import cross_sqdist, pairwise_sqdist
+from ccgp_tpu_torch.utils import trace
 
 # the reference's defaults: the nugget ratio's and the global rates' lower
 # bounds, and the number of candidates refined by BFGS
@@ -183,6 +188,7 @@ def _lhd(key, n, k, dtype):
                         for kj in rng.split(key, k)], dim=1)
 
 
+@trace.span("cgp")
 def cgp_fit(x: torch.Tensor, y: torch.Tensor, key: torch.Tensor,
             nugget_l: float = NUGGET_L, num_starts: int = NUM_STARTS,
             theta_l=None, alpha_l=None, kappa_u=None,
@@ -202,11 +208,14 @@ def cgp_fit(x: torch.Tensor, y: torch.Tensor, key: torch.Tensor,
 
     # 1) the candidate sweep as one batch; the best num_starts, ties to the
     # lower index as jax.lax.top_k(-objective)
-    cand = _lhd(key.to(dev), n_candidates, p + 3, dt) * (upper - lower) + lower
-    with torch.no_grad():
-        cand_obj = obj(cand)
-    top = cand[torch.sort(-cand_obj, descending=True, stable=True)[1]
-               [:num_starts]]
+    with trace.span("candidates"):
+        trace.count("cgp.candidates", n_candidates)
+        cand = (_lhd(key.to(dev), n_candidates, p + 3, dt) * (upper - lower)
+                + lower)
+        with torch.no_grad():
+            cand_obj = obj(cand)
+        top = cand[torch.sort(-cand_obj, descending=True, stable=True)[1]
+                   [:num_starts]]
 
     # 2) bounded refinement of the top starts
     res = multistart_minimize(obj, top, lower=lower, upper=upper)
@@ -228,10 +237,12 @@ def cgp_fit(x: torch.Tensor, y: torch.Tensor, key: torch.Tensor,
                   tau2=tau2, objval=objval, rmscv=rmscv)
 
 
+@trace.span("jackknife")
 def _jackknife(x, y, theta, alpha, lam, bwv):
     """The jackknife RMSCV (`:171-199`): the n leave-one-out refits at the
     fit's rates as one batch, each predicting its held-out point."""
     n, dev = x.shape[0], x.device
+    trace.count("cgp.jackknife_refits", n)
     keep = torch.stack([torch.cat([torch.arange(j, device=dev),
                                    torch.arange(j + 1, n, device=dev)])
                         for j in range(n)])                  # (n, n - 1)
@@ -248,6 +259,7 @@ def _jackknife(x, y, theta, alpha, lam, bwv):
     return torch.sqrt(torch.mean((y - yjf) ** 2))
 
 
+@trace.span("cgp_predict")
 def cgp_predict(fit: CGPFit, x_new: torch.Tensor,
                 alpha_level: float = 0.05) -> CGPPrediction:
     """predict.CGP (`:249-321`) over all test points at once, with the

@@ -1372,6 +1372,49 @@ def test_bfgs_graph_guard_path_bit_equal(cuda, monkeypatch):
     assert not all(bool(torch.isfinite(v)) for v in eager)
 
 
+def _gv_split(dev, j=0):
+    import json
+    from pathlib import Path
+
+    data = json.loads((Path(__file__).resolve().parents[1] / "benchmark"
+                       / "data" / "gv_size50_splits.json").read_text())
+    pts = torch.tensor(data["points"], dtype=torch.float64, device=dev)
+    train = pts[data["splits"][j]["train"]]
+    return train[:, :9], train[:, 9]
+
+
+def test_bfgs_graph_gv_mlegp_bit_equal(cuda, monkeypatch):
+    """`mlegp_fit` on the first ground-vibrations split (f64, d = 9, n =
+    50, 49 starts, the study's plug-in and single GP): one capture serves
+    the starts, the graphed search equals the eager one bit for bit."""
+    from ccgp_tpu_torch.infer.mle import mlegp_fit
+
+    x, y = _gv_split(cuda)
+    key = rng.split(rng.PRNGKey(7, device=cuda), 4)[3]
+
+    def search():
+        m = mlegp_fit(kernels.sqexp_family(), x, y, key, jitter=0.0)
+        return m.theta, m.nll, m.sigma2
+
+    _graphed_and_eager(search, monkeypatch, captures=1)
+
+
+def test_bfgs_graph_gv_cgp_bit_equal(cuda, monkeypatch):
+    """`cgp_fit` on the first ground-vibrations split (f64, p = 9, n = 50,
+    the 505 candidates, 5 bounded searches over 12 parameters, the
+    jackknife): its objective captures, one capture serves the searches,
+    and the fit equals the eager one bit for bit."""
+    from ccgp_tpu_torch.models.composite_gp import cgp_fit
+
+    x, y = _gv_split(cuda)
+    key = rng.split(rng.PRNGKey(7, device=cuda), 4)[2]
+
+    def search():
+        return cgp_fit(x, y, key)
+
+    _graphed_and_eager(search, monkeypatch, captures=1)
+
+
 def test_bfgs_graphs_are_released(cuda):
     """Twenty Laplace fits in a row: the device memory reserved after the
     first does not grow, so each search's graph is released and its pool's
