@@ -38,8 +38,9 @@ ahead from one `ops.rng.chunk_draws_lanes` call.
 
 The loop conditions live on the host: a one-round body reads its
 acceptance back once per round, a chunk its acc/consumed flags once per
-chunk. The Geweke statistic (a few hundred scalar operations) runs on the
-host copy of its window. Each of the three runs as the span `sampler`,
+chunk. The Geweke test runs where the chain lies (`ops.geweke`: on the
+card one launch per check, which reads the window in place), and only its
+p-value is read back. Each of the three runs as the span `sampler`,
 with a `geweke` span per check and its rounds
 counted as `rounds.kept`; the chunked one also spans each `chunk` and
 counts the rounds it launched, `rounds.launched` (`utils.trace`).
@@ -53,10 +54,10 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ccgp_tpu_torch.infer.geweke import geweke_pvalue
 from ccgp_tpu_torch.infer.laplace import LaplaceFit, laplace
 from ccgp_tpu_torch.models.likelihood import first_acceptance
 from ccgp_tpu_torch.ops import rng
+from ccgp_tpu_torch.ops.geweke import geweke_pvalue
 from ccgp_tpu_torch.utils import trace
 
 ROUNDS_PER_CALL_WARM = 120
@@ -211,8 +212,8 @@ def _one_round(logpost, z0, key, fit, n_max, samp_size, batch_size,
         n_rnd += 1
         if rec and k_rec >= samp_size and k_rec % batch_size == 0:
             with trace.span("geweke"):
-                pv = float(geweke_pvalue(trace.readback(
-                    P[k_rec - samp_size:k_rec, :dim])))
+                pv = trace.readback(geweke_pvalue(
+                    P[k_rec - samp_size:k_rec, :dim]))
     trace.count("rounds.kept", n_rnd)
     recorded = torch.arange(n_max, device=dev) < k_rec
     return MetropolisResult(
@@ -281,9 +282,8 @@ def _chunked(logpost, z0, key, fit, n_max, samp_size, batch_size,
                 with trace.span("geweke"):
                     first_chk = int(torch.argmax(check_round.to(torch.int64)))
                     pos_chk = int(pos[first_chk])
-                    window = trace.readback(
-                        P[pos_chk - samp_size:pos_chk, :dim])
-                    s["pv"] = float(geweke_pvalue(window))
+                    s["pv"] = trace.readback(geweke_pvalue(
+                        P[pos_chk - samp_size:pos_chk, :dim]))
                 if s["pv"] >= alpha_geweke:
                     valid = runnable & (idx <= first_chk)
         n_acc_c = int(torch.sum(torch.where(valid, acc, 0)))
@@ -400,9 +400,10 @@ def metropolis_lanes(
     made LANES_DRAW_ROUNDS rounds ahead by one `chunk_draws_lanes` call, and
     the active lanes, which all step every round, consume them one round
     per iteration: lane i's round j takes the draws of its serial chain's
-    round j. Each round reads back one flag per lane; the Geweke test runs
-    on the host, for the lanes whose record count reaches a check
-    boundary, on their windows read back together."""
+    round j. Each round reads back one flag per lane; the lanes whose
+    record count reaches a check boundary have their windows gathered and
+    tested together (`ops.geweke`: one launch on the card), and their
+    p-values read back."""
     if record not in ("accepted", "all"):
         raise ValueError(record)
     if starts.ndim != 2 or keys.shape != (starts.shape[0], 2):
@@ -502,11 +503,9 @@ def _lanes_loop(logpost_lanes, fits, z, prop_chol, lpv, lpb, keys, n_max,
             with trace.span("geweke"):
                 rows = (torch.as_tensor(k_rec[check] - samp_size)[:, None]
                         + torch.arange(samp_size))
-                windows = trace.readback(
+                pv[check] = trace.readback(geweke_pvalue(
                     P[torch.as_tensor(check, device=dev)[:, None],
-                      rows.to(dev), :dim])
-                for c, w in zip(check, windows):
-                    pv[c] = float(geweke_pvalue(w))
+                      rows.to(dev), :dim])).numpy()
         stop = active & ~((k_rec < n_max) & (pv < alpha_geweke)
                           & (n_prop < max_proposals))
         if stop.any():

@@ -40,6 +40,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+_L = ctypes.c_longlong
 # C entry points: name -> argtypes (restype is always int)
 _SIGNATURES = {
     "ccgp_threefry_split_chain": [_P, _P, _P, _P, _I, _P],
@@ -79,6 +80,10 @@ _SIGNATURES = {
     # x, y, r1, r2, p, scale, shift, q, B, n, d, jitter, stream
     "ccgp_gram_chol_f32": [_P] * 8 + [_I] * 3 + [_D, _P],
     "ccgp_gram_chol_f64": [_P] * 8 + [_I] * 3 + [_D, _P],
+    # x, out, window / row / column strides, B, n, dim, n1, n2, km1, km2,
+    # warps, stream
+    "ccgp_geweke_f32": [_P] * 2 + [_L] * 3 + [_I] * 8 + [_P],
+    "ccgp_geweke_f64": [_P] * 2 + [_L] * 3 + [_I] * 8 + [_P],
 }
 
 def _sources():

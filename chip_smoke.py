@@ -203,6 +203,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      17.0, (c) 3.9, (d) 0.2, (e) 9.7, (f) 0.5, the phase 31.2 of the
      script's 834.
 
+ 23. Geweke's p-value on the card (`ops.geweke`, csrc/geweke.cu; after
+     phase 6, before the paths of many small launches): at the fit cells'
+     shapes (n = 1000; dim 4 in f32, dim 3 in f64), 12 AR(1) windows each
+     read in place from a chain buffer against the plain path the drivers
+     took before (window read back, p-value on the CPU; 1e-12 relative in
+     f64, 1e-4 in f32, the same decision against 0.5), then the kernel's
+     device and call time, a check on the card with its read-back, the
+     plain version on the card and the CPU path per check, and the serial
+     floor; phase 5's bench fit must launch it.
+
 The CPU sides of phases 16, 19 (all but the heat exchanger's, which scans
 the card's rows), 21's HMC and 22a run in a child process (`_cpu_twins`)
 beside phase 12's card fits, as phase 12's own CPU fits do; the card's
@@ -213,11 +223,12 @@ launch counters set to 0 just before it and read just after; each must
 launch its kernels (K2's fused kernel once per chunk, 38 in the bench fit,
 and once per round on the one-round and 1-D routes; its lanes launch once
 per 120 rounds of the sweep). The last lines are a JSON object of kernel
-records (K1-K9 and K2's lanes launch), the card's name and power limit,
+records (K1-K9, K2's lanes launch and Geweke's kernel), the card's name and power limit,
 and `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -564,7 +575,7 @@ def _fit_predict(x, y, grid, seed, dtype, device, jitter, draw_chunk=None,
 def _counted():
     """Every kernel wrapper, by the name its launch counter reports."""
     from ccgp_tpu_torch.ops import (
-        chol_lanes, chol_nll, chol_smallk, gram_chol, rng)
+        chol_lanes, chol_nll, chol_smallk, geweke, gram_chol, rng)
 
     return {"threefry_split_chain": rng.threefry_split_chain,
             "chunk_draws": rng.chunk_draws,
@@ -577,7 +588,8 @@ def _counted():
                 chol_smallk.fused_mix_quadratics_smallk,
             "fused_mix_mh_round": chol_smallk.fused_mix_mh_round,
             "fused_mix_quadratics": gram_chol.fused_mix_quadratics,
-            "chol_nll": chol_nll.chol_nll}
+            "chol_nll": chol_nll.chol_nll,
+            "geweke_pvalue": geweke.geweke_pvalue}
 
 
 def _zero_counts() -> None:
@@ -632,8 +644,8 @@ def phase_main_path():
     if chain != BENCH_CHAIN:
         raise AssertionError(f"the bench chain moved: {chain}, expected "
                              f"{BENCH_CHAIN}")
-    _require_launched(launches, ("chunk_draws", "fused_mix_mh_rounds"),
-                      "full-Bayes path")
+    _require_launched(launches, ("chunk_draws", "fused_mix_mh_rounds",
+                                 "geweke_pvalue"), "full-Bayes path")
     if (launches["chunk_draws"], launches["fused_mix_mh_rounds"]) != (
             BENCH_CHUNKS, BENCH_CHUNKS):
         raise AssertionError(f"the bench fit must draw and run its rounds "
@@ -3391,7 +3403,8 @@ def phase_case_studies(twins=None):
 # each counted wrapper's kernels, by the demangled name the profiler gives
 # them: a name is the wrapper's when it holds every substring of one of
 # the wrapper's patterns
-_SYMBOLS = {"threefry_split_chain": (("split_chain_kernel",),),
+_SYMBOLS = {"geweke_pvalue": (("geweke_kernel<",),),
+            "threefry_split_chain": (("split_chain_kernel",),),
             "chunk_draws": (("chunk_draws_kernel<",),),
             "chunk_draws_lanes": (("chunk_draws_lanes_kernel<",),),
             "fused_mix_mh_rounds": (("mh_rounds_kernel<",),),
@@ -3695,14 +3708,39 @@ extern "C" int ccgp_dep_latency(void* out, void* sink, int iters,
                                               (unsigned*)sink, iters);
   return (int)cudaGetLastError();
 }
+// One thread, a chain of dependent floating-point adds (explicitly rounded,
+// as csrc/geweke.cu's), timed by clock64.
+template <typename T> __device__ T addr(T a, T b);
+template <> __device__ float addr(float a, float b) { return __fadd_rn(a, b); }
+template <> __device__ double addr(double a, double b) { return __dadd_rn(a, b); }
+template <typename T>
+__global__ void fadd_loop(T a, T b, long long* out, T* sink, int iters) {
+  T x = a;
+  const long long t0 = clock64();
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) x = addr(x, b);
+  }
+  const long long t1 = clock64();
+  out[0] = t1 - t0;
+  sink[0] = x;
+}
+extern "C" int ccgp_fadd_latency(void* out, void* sink, int iters, int f64,
+                                 void* stream) {
+  if (f64)
+    fadd_loop<double><<<1, 1, 0, (cudaStream_t)stream>>>(
+        1.0, 1e-9, (long long*)out, (double*)sink, iters);
+  else
+    fadd_loop<float><<<1, 1, 0, (cudaStream_t)stream>>>(
+        1.0f, 1e-9f, (long long*)out, (float*)sink, iters);
+  return (int)cudaGetLastError();
+}
 """
 
 
-def dependent_issue_cycles(iters=4096):
-    """Not a phase: the card's latency of one dependent 32-bit integer
-    operation, in cycles, from a clock64 loop of iters x 16 steps of two
-    dependent operations (`_LATENCY_SRC`, built here with the package's
-    nvcc flags)."""
+@functools.cache
+def _latency_lib():
+    """`_LATENCY_SRC` built with the package's nvcc flags, once a process."""
     import ctypes
 
     from ccgp_tpu_torch.ops import _build
@@ -3716,16 +3754,46 @@ def dependent_issue_cycles(iters=4096):
     lib = ctypes.CDLL(str(out))
     lib.ccgp_dep_latency.argtypes = [ctypes.c_void_p] * 2 + [
         ctypes.c_int, ctypes.c_void_p]
+    lib.ccgp_fadd_latency.argtypes = [ctypes.c_void_p] * 2 + [
+        ctypes.c_int] * 2 + [ctypes.c_void_p]
+    return lib
+
+
+def _loop_cycles(launch, sink_dtype, steps):
+    """The fewest cycles per step of five runs of one of `_LATENCY_SRC`'s
+    clock64 loops: launch(cycles, sink, stream) runs it, `steps` dependent
+    steps in all."""
+    from ccgp_tpu_torch.ops import _build
+
     cyc = torch.zeros(1, dtype=torch.int64, device="cuda")
-    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    sink = torch.zeros(1, dtype=sink_dtype, device="cuda")
     best = math.inf
     for _ in range(5):
-        _build.check(lib.ccgp_dep_latency(cyc.data_ptr(), sink.data_ptr(),
-                                          iters, _build.stream(cyc.device)),
-                     "dep_latency")
+        _build.check(launch(cyc.data_ptr(), sink.data_ptr(),
+                            _build.stream(cyc.device)), "latency loop")
         torch.cuda.synchronize()
-        best = min(best, int(cyc.item()) / (iters * 16 * 2))
+        best = min(best, int(cyc.item()) / steps)
     return best
+
+
+def dependent_issue_cycles(iters=4096):
+    """Not a phase: the card's latency of one dependent 32-bit integer
+    operation, in cycles, from a clock64 loop of iters x 16 steps of two
+    dependent operations (`_LATENCY_SRC`)."""
+    lib = _latency_lib()
+    return _loop_cycles(lambda c, s, st: lib.ccgp_dep_latency(c, s, iters, st),
+                        torch.int32, iters * 16 * 2)
+
+
+def dependent_fadd_cycles(dtype, iters=4096):
+    """Not a phase: the card's latency of one dependent floating-point add
+    of `dtype`, in cycles, from a clock64 loop of iters x 16 adds
+    (`_LATENCY_SRC`)."""
+    lib = _latency_lib()
+    f64 = int(dtype == torch.float64)
+    return _loop_cycles(
+        lambda c, s, st: lib.ccgp_fadd_latency(c, s, iters, f64, st),
+        dtype, iters * 16)
 
 
 def chain_sass_depth():
@@ -3963,6 +4031,142 @@ def phase_timing(fit):
     out.update(_smallk_timing())
     out.update(_k8_k9_timing())
     return out
+
+
+# --- phase 23: Geweke's p-value on the card (csrc/geweke.cu) ---------------
+
+# the fit cells' windows: samp_size 1000 rows of the chain's state, dim 4 in
+# f32 (bench2d.n100) and dim 3 in f64 (gv9d.splits)
+GEWEKE_SHAPES = (("bench2d.n100", 4, torch.float32),
+                 ("gv9d.splits", 3, torch.float64))
+GEWEKE_TOL = {torch.float32: 1e-4, torch.float64: 1e-12}
+
+def geweke_depth(n, dim):
+    """The dependent floating-point operations on the critical path of one
+    window's p-value, with every sum taken as a balanced tree: per part
+    the mean (log2 m adds, a divide), the centring, an autocovariance (a
+    multiply, log2 m adds, a divide), then per order k of the recursion a
+    product and log2(k - 1) adds for acc, a subtract, a divide, the update
+    of phi (a multiply, a subtract) and log2 k adds for s; the AIC scan
+    (a multiply, log, an add, log2(km + 1) compares), spec0 (four); then z
+    (a divide, an add, a square root, a subtract, a divide), the p-value
+    (five) and log2 dim compares. The longer part sets the depth: the two
+    parts run side by side."""
+    from ccgp_tpu_torch.ops.geweke import layout
+
+    lg = lambda v: math.ceil(math.log2(v)) if v > 1 else 0  # noqa: E731
+    _, n2, _, km, _, _ = layout(n, dim, 8)
+    depth = (lg(n2) + 1) + 1 + (1 + lg(n2) + 1)
+    depth += sum(1 + lg(k - 1) + 1 + 1 + 2 + lg(k) for k in range(1, km + 1))
+    depth += 3 + lg(km + 1) + 4
+    return depth + 5 + 5 + lg(dim)
+
+
+def _ar1(n, dim, rho, seed):
+    r = np.random.default_rng(seed)
+    e = r.normal(size=(n, dim))
+    x = np.zeros((n, dim))
+    for i in range(1, n):
+        x[i] = rho * x[i - 1] + e[i]
+    return x
+
+
+def phase_geweke():
+    """Geweke's kernel at the fit cells' shapes (n = 1000; dim 4 in f32,
+    dim 3 in f64): AR(1) windows (rho 0, 0.6, 0.95; 4 seeds each) read in
+    place from chain buffers of rows dim + 2, against the plain path as
+    the drivers took it before (the window read back, the p-value on the
+    CPU): within 1e-12 relative (f64) or 1e-4 (f32) and the same decision
+    against 0.5 away from it. Then timed: the kernel's device and per-call
+    time; a check as the drivers make it on the card (the launch and the
+    p-value's read-back, host clock); the plain version on the card
+    (`infer.geweke.geweke_pvalue` of the CUDA window, CUDA events) and on
+    the CPU path it replaced (the window's read-back and the CPU's
+    p-value, host clock); the bounds: the roofline (the two parts' values
+    read once) and the serial floor (`geweke_depth` dependent operations x
+    one dependent add's latency at the SM clock under load)."""
+    from ccgp_tpu_torch.infer.geweke import geweke_pvalue as plain
+    from ccgp_tpu_torch.ops import geweke
+
+    out, errs = {}, {}
+    mhz, _ = _sm_clock_mhz()
+    for label, dim, dtype in GEWEKE_SHAPES:
+        worst, agree = 0.0, 0
+        for rho in (0.0, 0.6, 0.95):
+            for seed in range(4):
+                P = torch.tensor(_ar1(1300, dim + 2, rho, 100 * dim + seed),
+                                 dtype=dtype, device="cuda")
+                w = P[150:1150, :dim]
+                got = float(geweke.geweke_pvalue(w))
+                ref = float(plain(w.cpu()))
+                err = abs(got - ref) / (abs(ref) if dtype == torch.float64
+                                        else 1.0)
+                worst = max(worst, err)
+                agree += got == ref
+                if not err <= GEWEKE_TOL[dtype]:
+                    raise AssertionError(f"[23] geweke {label} rho={rho} "
+                                         f"seed={seed}: {got} against {ref}")
+                if abs(ref - 0.5) > 1e-4 and (got >= 0.5) != (ref >= 0.5):
+                    raise AssertionError(f"[23] geweke {label}: the decision"
+                                         f" moved ({got} against {ref})")
+        errs[label] = worst
+        P = torch.tensor(_ar1(1300, dim + 2, 0.6, 7), dtype=dtype,
+                         device="cuda")
+        w = P[150:1150, :dim]
+        fn = lambda: geweke.geweke_pvalue(w)  # noqa: E731
+        call = _cuda_ms(fn, 200)
+        k, how = _kernel_ms("geweke_pvalue", fn, 50, call)
+        fn().item()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn().item()
+        check = (time.perf_counter() - t0) * 1e3 / 200
+        p_card = _cuda_ms(lambda: plain(w), 5)
+        float(plain(w.cpu()))
+        t0 = time.perf_counter()
+        for _ in range(20):
+            float(plain(w.cpu()))
+        p_cpu = (time.perf_counter() - t0) * 1e3 / 20
+        elem = torch.finfo(dtype).bits // 8
+        n1, n2, km1, km2, warps, smem = geweke.layout(1000, dim, elem)
+        # per part and column: the mean and the centring, the lags'
+        # products and sums, the recursion's ~4 km^2
+        ops = sum(dim * (2 * m + 2 * m * (km + 1) + 4 * km * km)
+                  for m, km in ((n1, km1), (n2, km2)))
+        roof = _bound(elem * ((n1 + n2) * dim + 1), (ops, PEAK_OPS[elem]))
+        depth = geweke_depth(1000, dim)
+        cycles = dependent_fadd_cycles(dtype)
+        floor = depth * cycles / (mhz * 1e3)
+        log(f"[23] geweke_pvalue {label} n=1000 dim={dim} {dtype}: kernel "
+            f"{k:.4f} ms {how} ({call:.4f} ms per call; {warps} warps, "
+            f"{smem} B of shared memory); a check on the card (launch and "
+            f"read-back) {check:.4f} ms; plain on the card {p_card:.3f} ms "
+            f"per call; the CPU path it replaced (read-back and CPU p-value) "
+            f"{p_cpu:.3f} ms per check; bounds: roofline {roof[0]:.2e} ms "
+            f"({roof[1]}), serial floor {floor:.4f} ms ({depth} dependent "
+            f"operations x {cycles:.2f} cycles at {mhz:g} MHz); max "
+            f"{'relative' if dtype == torch.float64 else 'absolute'} error "
+            f"{worst:.2e}, {agree} of 12 p-values equal")
+        out[("geweke_pvalue", label)] = (k, p_card, None, (floor, "serial"))
+        out[("geweke_pvalue extra", label)] = dict(
+            call_ms=call, check_ms=check, cpu_path_ms=p_cpu,
+            roofline_ms=roof[0])
+    return out, errs
+
+
+def _geweke_record(launches, errs, times):
+    """The Geweke kernel's record at the GV cell's shape (f64), the bench
+    cell's (f32) beside it: `bound_ms` its serial floor, which bounds;
+    `cpu_path_ms` the read-back and CPU p-value it replaced, per check."""
+    rec = _record("geweke_pvalue", "ccgp_tpu_torch/csrc/geweke.cu",
+                  "none (ccgp_tpu/infer/geweke.py runs as XLA ops)",
+                  launches, errs["gv9d.splits"],
+                  times[("geweke_pvalue", "gv9d.splits")])
+    extra = times[("geweke_pvalue extra", "gv9d.splits")]
+    rec.update(bound="serial_floor", **extra,
+               ms_f32=times[("geweke_pvalue", "bench2d.n100")][0],
+               max_abs_err_f32=errs["bench2d.n100"])
+    return rec
 
 
 def _smallk_timing():
@@ -5044,6 +5248,8 @@ def _main(name, smi, sweep_tmp) -> int:
     # their hundreds of thousands of small launches the profiler kept no
     # record of most timing loops
     times = _timed("[6]", phase_timing, fit)
+    geweke_times, geweke_errs = _timed("[23]", phase_geweke)
+    times.update(geweke_times)
     # the CPU sides of phases 16, 19, 21 and 22a, beside phase 12's card
     # fits (host-bound on one core)
     twins = _Twins()
@@ -5103,6 +5309,7 @@ def _main(name, smi, sweep_tmp) -> int:
                 "ccgp_tpu/ops/pallas_chol.py:186",
                 launches["chol_nll"], k9_err,
                 times[("chol_nll", "map_cloud")]),
+        _geweke_record(launches["geweke_pvalue"], geweke_errs, times),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -30,6 +30,11 @@ the dry run on the card four times over (1e-4, JAX's guard) and the
 flagship forward in f64 (1e-10). BFGS's evaluation replayed as a CUDA
 graph is held bit for bit to the eager evaluation on three searches (the
 same point, value, evaluations and stop), and its graphs are released.
+Geweke's kernel (`ops.geweke`) is held to the plain path on the CPU within
+1e-12 relative (float64) and 1e-4 absolute with the same decision against
+0.5 (float32: sums in another order); its batch and strided reads bit for
+bit to single launches and contiguous copies; and one fit of each fit
+cell's configuration to the eager Geweke path bit for bit.
 """
 import ctypes
 
@@ -1433,3 +1438,190 @@ def test_bfgs_graphs_are_released(cuda):
     assert torch.cuda.memory_reserved() == reserved
     for f in fits[1:]:
         assert torch.equal(f.mode, fits[0].mode)
+
+
+# --- Geweke's p-value on the card (csrc/geweke.cu) ------------------------
+
+def _ar1(n, dim, rho, seed):
+    r = np.random.default_rng(seed)
+    e = r.normal(size=(n, dim))
+    x = np.zeros((n, dim))
+    for i in range(1, n):
+        x[i] = rho * x[i - 1] + e[i]
+    return x
+
+
+def _geweke_plain(w):
+    """The plain path as the drivers took it before the kernel: the window
+    read back, the p-value on the CPU."""
+    from ccgp_tpu_torch.infer.geweke import geweke_pvalue
+
+    return float(geweke_pvalue(w.cpu()))
+
+
+def _geweke_close(got, ref, dtype):
+    """float64: within 1e-12 relative; float32: within 1e-4 absolute and the
+    same decision against 0.5 wherever the plain p-value lies more than
+    1e-4 from it."""
+    if dtype == torch.float64:
+        assert abs(got - ref) <= 1e-12 * abs(ref), (got, ref)
+    else:
+        assert abs(got - ref) <= 1e-4, (got, ref)
+        if abs(ref - 0.5) > 1e-4:
+            assert (got >= 0.5) == (ref >= 0.5), (got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1000, 240])
+@pytest.mark.parametrize("dim", [1, 3, 4, 19])
+def test_geweke_kernel_equals_plain(cuda, dim, n, dtype):
+    """AR(1) windows with rho 0, 0.6 and 0.95 (three seeds each): the
+    kernel's p-value against the plain path's, one launch per window."""
+    from ccgp_tpu_torch.ops import geweke
+
+    for rho in (0.0, 0.6, 0.95):
+        for seed in range(3):
+            w = torch.tensor(_ar1(n, dim, rho, 1000 * dim + seed),
+                             dtype=dtype, device=cuda)
+            before = geweke.geweke_pvalue.launches
+            got = geweke.geweke_pvalue(w)
+            assert geweke.geweke_pvalue.launches == before + 1
+            assert got.shape == () and got.dtype == dtype
+            assert got.device == w.device
+            _geweke_close(float(got), _geweke_plain(w), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["constant", "zeros", "nan_first",
+                                  "nan_last", "nan_between", "inf_first",
+                                  "minus_inf_last", "inf_between"])
+def test_geweke_kernel_degenerate_windows(cuda, case, dtype):
+    """A constant column, a NaN row and an infinite value, in the first
+    part, the last part or the rows between that neither reads: the plain
+    path's p-value (0 where a part is degenerate) and its decision."""
+    from ccgp_tpu_torch.ops import geweke
+
+    w = _ar1(1000, 4, 0.5, 3)
+    if case == "constant":
+        w[:, 1] = 1.5
+    elif case == "zeros":
+        w[:] = 0.0
+    elif case == "nan_first":
+        w[7] = np.nan
+    elif case == "nan_last":
+        w[900] = np.nan
+    elif case == "nan_between":
+        w[300] = np.nan
+    elif case == "inf_first":
+        w[50, 2] = np.inf
+    elif case == "minus_inf_last":
+        w[999, 0] = -np.inf
+    else:
+        w[499, 3] = np.inf
+    w = torch.tensor(w, dtype=dtype, device=cuda)
+    got, ref = float(geweke.geweke_pvalue(w)), _geweke_plain(w)
+    if case.endswith("between"):
+        _geweke_close(got, ref, dtype)
+    else:
+        assert got == ref == 0.0
+    assert (got >= 0.5) == (ref >= 0.5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_geweke_kernel_batch_and_strided_view(cuda, dtype):
+    """B windows in one launch equal B single launches bit for bit, and a
+    window read in place from a chain buffer (rows of dim + 2, a strided
+    view) equals its contiguous copy bit for bit."""
+    from ccgp_tpu_torch.ops import geweke
+
+    dim = 4
+    P = torch.tensor(_ar1(3000, dim + 2, 0.6, 11), dtype=dtype, device=cuda)
+    firsts = [0, 337, 1000, 1999]
+    wins = torch.stack([P[f:f + 1000, :dim] for f in firsts])
+    before = geweke.geweke_pvalue.launches
+    batch = geweke.geweke_pvalue(wins)
+    assert geweke.geweke_pvalue.launches == before + 1
+    assert batch.shape == (len(firsts),)
+    for b, f in enumerate(firsts):
+        view = P[f:f + 1000, :dim]
+        assert not view.is_contiguous()
+        one = geweke.geweke_pvalue(view)
+        copy = geweke.geweke_pvalue(view.contiguous())
+        assert torch.equal(_bits(one), _bits(copy))
+        assert torch.equal(_bits(batch[b]), _bits(one))
+        _geweke_close(float(one), _geweke_plain(view), dtype)
+    # a batch of strided views (every other row of the buffer)
+    odd = P[:2000:2, :dim].unsqueeze(0).expand(2, -1, -1)
+    got = geweke.geweke_pvalue(odd)
+    assert torch.equal(_bits(got[0]), _bits(got[1]))
+    assert torch.equal(_bits(got[0]),
+                       _bits(geweke.geweke_pvalue(odd[0].contiguous())))
+
+
+def _cell_fit(dev, cell):
+    """One fit of a benchmark fit cell's configuration: `bench2d.n100` (the
+    2-D anisotropic example, 100 uniform points, f32, the grid plug-in)
+    or `gv9d.splits` (the first ground-vibrations split, f64, d = 9, the
+    BFGS plug-in); K = 4, samp_size 1000, batch_size 20."""
+    from ccgp_tpu_torch.models.combined_gp import MCMCConfig, fit_combined_gp
+
+    if cell == "bench":
+        r = np.random.default_rng(3)
+        x = torch.tensor(r.uniform(size=(100, 2)), dtype=torch.float32,
+                         device=dev)
+        y = _f2(x)
+        spec = MixtureSpec(kernels.sqexp_family(), kernels.sqexp_family(),
+                           dim=2, rough="tied", anisotropic=True)
+        start, pri = (1.0, 1.0, 0.0, 0.0), dict(
+            theta1_prior=LogNormal(-1.0, 1.0),
+            theta2_prior=InverseGamma(3, 4))
+        kw = dict(jitter=1e-3, mle_method="grid")
+    else:
+        x, y = _gv_split(dev)
+        spec = MixtureSpec(kernels.sqexp_family(), kernels.sqexp_family(),
+                           dim=9, rough="free", anisotropic=False)
+        start, pri = (1.0, 1.0, 0.0), dict(theta1_prior=InverseGamma(3, 1),
+                                           theta2_prior=InverseGamma(5, 75))
+        kw = dict(jitter=0.0, mle_method="bfgs")
+    mcmc = MCMCConfig(start=start, n_max=5000, samp_size=1000,
+                      net_samp_size=1000, batch_size=20, alpha_geweke=0.5,
+                      speculative=4)
+    return fit_combined_gp(spec, x, y, rng.PRNGKey(7, device=dev),
+                           mcmc=mcmc, device=dev, **kw, **pri)
+
+
+@pytest.mark.parametrize("cell", ["bench", "gv"])
+def test_geweke_kernel_in_the_fit_cells(cuda, cell, monkeypatch):
+    """One fit of each fit cell: the kernel launched once per Geweke check
+    (`sampler/geweke` span), counted as `geweke.kernel`, one read-back a
+    check; and the chain equal, bit for bit, to the chain the eager path
+    (the window read back, the p-value on the CPU) gives."""
+    from ccgp_tpu_torch.infer import metropolis
+    from ccgp_tpu_torch.infer.geweke import geweke_pvalue as plain
+    from ccgp_tpu_torch.ops import geweke
+    from ccgp_tpu_torch.utils import trace
+
+    trace.clear()
+    before = geweke.geweke_pvalue.launches
+    fit = _cell_fit(cuda, cell)
+    rec = trace.last()
+    assert rec["name"] == "fit"
+    checks = rec["spans"]["sampler/geweke"][0]
+    assert checks > 0
+    assert geweke.geweke_pvalue.launches - before == checks
+    assert rec["counts"]["sampler/geweke"]["geweke.kernel"] == checks
+    assert rec["counts"]["sampler/geweke/readback"]["readbacks"] == checks
+    with monkeypatch.context() as m:
+        m.setattr(metropolis, "geweke_pvalue", lambda w: plain(w.cpu()))
+        ref = _cell_fit(cuda, cell)
+    trace.clear()
+    assert geweke.geweke_pvalue.launches - before == checks
+    a, b = fit.mcmc, ref.mcmc
+    assert (a.n_recorded, a.n_proposals, a.n_accepted, a.n_rounds) == \
+        (b.n_recorded, b.n_proposals, b.n_accepted, b.n_rounds)
+    assert a.converged == b.converged
+    assert abs(a.pvalue - b.pvalue) <= (1e-4 if a.samples.dtype
+                                        == torch.float32 else 1e-12)
+    for f in ("samples", "betas", "logposts"):
+        assert torch.equal(_bits(getattr(a, f)), _bits(getattr(b, f))), f
+    assert torch.equal(_bits(fit.zs), _bits(ref.zs))

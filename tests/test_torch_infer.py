@@ -159,3 +159,85 @@ def test_geweke(rho, seed):
     for col in range(2):
         assert rel_err(tgew.spectrum0_ar(t(s[:, col])),
                        spec0(jnp.asarray(s[:, col]))) <= 1e-10
+
+
+# --- the Geweke wrapper (`ops.geweke`) on the CPU ---------------------------
+
+def _chain_buffer(dtype):
+    """A chain buffer as the drivers keep it: rows [z | beta | logpost]."""
+    return torch.tensor(_ar1(1300, 6, 0.6, 5), dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_geweke_wrapper_cpu_takes_the_plain_path(dtype):
+    """A CPU window, a strided view of a chain buffer or a batch of windows,
+    goes through `infer.geweke.geweke_pvalue` bit for bit, and launches
+    nothing."""
+    from ccgp_tpu_torch.ops import geweke as ogew
+
+    P = _chain_buffer(dtype)
+    before = ogew.geweke_pvalue.launches
+    view = P[150:1150, :4]
+    got = ogew.geweke_pvalue(view)
+    assert got.dtype == dtype and got.shape == ()
+    assert torch.equal(got, tgew.geweke_pvalue(view))
+    assert torch.equal(ogew.geweke_pvalue(P[:240, :3]),
+                       tgew.geweke_pvalue(P[:240, :3]))
+    wins = torch.stack([P[f:f + 1000, :4] for f in (0, 150, 300)])
+    batch = ogew.geweke_pvalue(wins)
+    assert batch.shape == (3,)
+    for b in range(3):
+        assert torch.equal(batch[b], tgew.geweke_pvalue(wins[b]))
+    assert ogew.geweke_pvalue.launches == before
+
+
+@pytest.mark.parametrize("bad,error", [
+    (lambda P: P[:1000, :4].half(), TypeError),
+    (lambda P: P[:1000, :4].to(torch.int64), TypeError),
+    (lambda P: P[:1000, 0], ValueError),
+    (lambda P: P[None, None, :1000, :4], ValueError),
+    (lambda P: P[:9, :4], ValueError),             # an empty first part
+    (lambda P: P[:1000, :0], ValueError),
+    (lambda P: P[:0, :1000].reshape(0, 10, 0), ValueError),
+], ids=["half", "int64", "rank1", "rank4", "short", "no_columns",
+        "no_windows"])
+def test_geweke_wrapper_refuses_what_the_kernel_does_not_take(
+        monkeypatch, bad, error):
+    """A tensor taken for a CUDA one (the device check mocked): the wrapper
+    raises on a dtype, a rank or a shape the kernel does not take, before
+    it builds or launches anything."""
+    from ccgp_tpu_torch.ops import _build
+    from ccgp_tpu_torch.ops import geweke as ogew
+
+    def no_build():
+        raise AssertionError("the wrapper tried to build the kernels")
+
+    monkeypatch.setattr(ogew, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(_build, "library", no_build)
+    before = ogew.geweke_pvalue.launches
+    with pytest.raises(error):
+        ogew.geweke_pvalue(bad(_chain_buffer(torch.float64)))
+    # a window the kernel would take, on a device that is not a card
+    with pytest.raises(ValueError, match="unsupported device"):
+        ogew.geweke_pvalue(_chain_buffer(torch.float64)[:1000, :4])
+    assert ogew.geweke_pvalue.launches == before
+
+
+@pytest.mark.parametrize("n,dim,elem,warps", [
+    (1000, 4, 4, 8), (1000, 3, 8, 6), (240, 19, 8, 16), (240, 1, 8, 2),
+    (10000, 3, 8, 5)])
+def test_geweke_layout(n, dim, elem, warps):
+    """The launch's parts, orders and warps: n1 = int(0.1 n) and n2 =
+    int(0.5 n) rows, spectrum0_ar's orders, a warp per (part, column) up
+    to what fits one block's shared memory."""
+    from ccgp_tpu_torch.ops import geweke as ogew
+
+    n1, n2, km1, km2, w, nbytes = ogew.layout(n, dim, elem)
+    assert (n1, n2) == (int(0.1 * n), int(0.5 * n))
+    assert (km1, km2) == (min(n1 - 1, int(10 * np.log10(n1))),
+                          min(n2 - 1, int(10 * np.log10(n2))))
+    assert w == warps
+    assert nbytes == (w * (n2 + 4 * (km2 + 1)) + 4 * dim) * elem
+    assert nbytes <= ogew.SMEM_BYTES
+    with pytest.raises(ValueError):
+        ogew.layout(10 ** 6, 3, 8)
